@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels for Hopper (sources in ``qcnn_tpu_torch/csrc``),
+each with its plain PyTorch version and a count of launches."""
+
+from qcnn_tpu_torch.ops.cuda import pq_decode, pq_fc_fused, pq_lut_gather
+
+KERNELS = {
+    "pq_decode": pq_decode.KERNEL,
+    "pq_lut_gather": pq_lut_gather.KERNEL,
+    "pq_fc_fused": pq_fc_fused.KERNEL,
+}
+
+
+def reset_launches() -> None:
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}

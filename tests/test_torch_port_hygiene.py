@@ -1,0 +1,122 @@
+"""Port hygiene: the PyTorch port imports nothing of JAX, of the JAX package
+or of ml_dtypes (checked in a fresh interpreter, since this test process
+has already imported JAX), never builds a kernel at import, and never
+falls back to the CPU silently."""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import qcnn_tpu_torch
+from qcnn_tpu_torch import _device
+from qcnn_tpu_torch.core import FCSpec, ModelSpec, SoftmaxSpec
+from qcnn_tpu_torch.models import network, prepare, synth
+from qcnn_tpu_torch.models.interop import params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "qcnn_tpu", "ml_dtypes")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        qcnn_tpu_torch.__path__, "qcnn_tpu_torch."))
+
+
+def test_port_modules_import_no_jax_in_a_fresh_interpreter():
+    mods = _port_modules()
+    assert "qcnn_tpu_torch.ops.cuda.pq_fc_fused" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, f"the port pulled in {bad}"
+
+
+def _imports_of(path: str) -> list[str]:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_no_forbidden_import_anywhere_in_the_sources():
+    """Also catches imports inside functions, which importing alone would
+    not run."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.dirname(qcnn_tpu_torch.__file__)):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        bad = [n for n in _imports_of(path) if _forbidden(n)]
+        assert not bad, f"{path} imports {bad}"
+
+
+def test_import_builds_nothing():
+    from qcnn_tpu_torch.ops.cuda import _build
+
+    assert _build._library.cache_info().currsize == 0
+
+
+def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _device.resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _device.resolve_device("cuda")
+    assert _device.resolve_device("cpu") == torch.device("cpu")
+    assert _device.default_dtype(torch.device("cpu")) == torch.float32
+    assert _device.default_dtype(torch.device("cuda")) == torch.bfloat16
+
+
+def test_entry_points_never_run_on_the_cpu_unasked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ModelSpec(name="t", in_height=4, in_width=4, in_channels=2,
+                     layers=(FCSpec(3), SoftmaxSpec()))
+    params = synth.random_pq_params(spec, seed=0)
+    x = synth.random_input(spec, 1, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prepare.prepare_params(spec, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        network.forward(params, x, spec=spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(params)
+    prepared, conv_impls, fc_impls = prepare.prepare_params(
+        spec, params, device="cpu")
+    assert prepared[0]["weight"].dtype == torch.float32  # f32 on the CPU
+    out = network.forward(prepared, x, spec=spec, conv_impls=conv_impls,
+                          fc_impls=fc_impls, device="cpu")
+    assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
