@@ -10,14 +10,41 @@ Phases, each fatal on failure (any exception exits non-zero):
 3. kernels vs plain versions at every AlexNet geometry of the main path:
    pq_decode bit-exact (conv1-5, fc6-8), pq_lut_gather at B=1 (fc6-8),
    pq_fc_fused at B=256 and B=3 (fc6-8, both decode names).
+   pq_conv_fused at ResNet-50's two fused geometries (B=64) and ragged
+   ones, pq_fc at AlexNet fc6-8 (B=256 and B=3), lrn_fused at AlexNet's two
+   LRN shapes (B=256, bf16, all three window names) and small f32 ones.
 4. timing (CUDA events, L2 flushed before each launch) of each kernel, its
    plain version and one PyTorch library call computing the same function,
-   beside the least time the card could take (its bound).
+   beside the least time the card could take (its bound). Then lrn_fused's
+   own entry point, counted: no forward runs it (as in the JAX package).
 5. end to end: full-width AlexNet-PQ, synthetic params (seed 0), bf16,
    strategy 'auto' (decode at load) and 'memory' (in-step kernels) at
    B=256 and B=1; the launch counts show that memory mode ran the kernels,
    and memory mode agrees with auto. A few steps of each run go through
    torch.profiler: device-busy time a step and the kernels that take it.
+6. AlexNet's explicit FC arm fc_impl='pallas' (convs 'auto') at B=256 and
+   B=1: pq_fc three times a forward, agreeing with auto.
+7. full-width ResNet-50 (224x224, 1000 classes), bf16, synthetic PQ params
+   (seed 0), through models.common.build_family_forward: decode at load and
+   memory mode at B=64 (the family's max_batch) and B=1, each profiled.
+   Memory mode launches pq_conv_fused 7 times a forward (conv2 of stage 2
+   blocks 1-5 and stage 3 blocks 1-2) and pq_decode 46 times (the other 45
+   PQ convs and the fc head); decode at load launches no kernel.
+
+Limits (the script fails past them):
+- kernels against their plain versions: pq_conv_fused 1e-4 and pq_fc 1e-5
+  of the largest |output| (the same bf16 operands or f32 LUT, f32 sums in
+  another order); lrn_fused within one bf16 ulp of each bf16 output and
+  1e-6 of the largest |output| in f32 (f32 window sums in another order).
+- AlexNet memory and pallas against auto: max |dprob| <= 1e-2, top-1 equal
+  on >= 99 % of rows (the random net's softmax saturates).
+- ResNet-50 memory against decode at load: max |dprob| <= 5e-3, top-1 equal
+  on >= 99 % of rows. The fused conv sums bf16 products in f32 and emits
+  f32 before the cast, where cuDNN's bf16 conv rounds its output and adds
+  the bias in bf16; through 53 convs this moved probabilities by 1.5e-4 on
+  the CPU (B=16, seed 0). The random net gives every row the same top class
+  with a margin of about half its probability, so top-1 is the weak check
+  and |dprob| the strong one.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
@@ -80,7 +107,8 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
 
 def profile_steps(fwd, steps: int, label: str) -> None:
     """Device time of `steps` forwards by kernel (torch.profiler), the
-    device-busy time a step, and its share of the profiled wall time."""
+    device-busy time a step, its share of the profiled wall time, and the
+    host's CPU time a step in operators and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -103,6 +131,37 @@ def profile_steps(fwd, steps: int, label: str) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / steps / 1e3:9.4f} ms/step "
             f"x{e.count // steps:<3} {e.key[:90]}")
+    # the host side: CPU time of the operators and launches a step
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU]
+    host_ms = sum(e.self_cpu_time_total for e in host) / steps / 1e3
+    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:4]
+    log(f"  host: self_cpu_ms/step={host_ms:.4f}; top: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / steps / 1e3:.4f} ms "
+        f"x{e.count // steps}" for e in top))
+
+
+def new_row() -> dict:
+    """A kernel's entry of the {"kernels": [...]} record, being summed."""
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "max_abs_err": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
+
+
+def add_timing(row: dict, n: int, ms: float, plain: float, lib: float,
+               b_ms: float, nbytes: float, ops: float, ops_rate: float,
+               peaks: dict) -> None:
+    """Add n launches' worth of one shape's times to a kernel's row."""
+    for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                   ("bound_ms", b_ms), ("t_bytes", nbytes / peaks["bytes"]),
+                   ("t_ops", ops / ops_rate)):
+        row[key] += n * v
+
+
+def close_row(row: dict) -> dict:
+    """Name what bounds the summed shapes, bytes or operations."""
+    row["bound_by"] = "bytes" if row.pop("t_bytes") >= row.pop("t_ops") \
+        else "operations"
+    return row
 
 
 def alexnet_geometry(spec, params):
@@ -130,8 +189,7 @@ def phase_kernels(geo, spec, dev, flush, peaks):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
     # --- pq_decode: in-step conv decodes (the path) and fc rows, bit-exact
-    dec = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes": 0.0, "max_abs_err": 0.0}
+    dec = new_row()
     for name in ALEXNET_CONVS + ALEXNET_FCS:
         i, layer, p = geo[name]
         _, h, w, c = shapes[i]
@@ -169,15 +227,12 @@ def phase_kernels(geo, spec, dev, flush, peaks):
         b_ms, _ = bound(nbytes, 0, peaks["bf16"], peaks)
         log(f"time pq_decode {name} kernel_ms={ms:.5f} plain_ms={plain:.5f} "
             f"library_ms={lib:.5f} bound_ms={b_ms:.5f} (bytes {nbytes})")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", b_ms), ("bytes", nbytes)):
-            dec[key] += v
-    dec["bound_by"] = "bytes"
-    rows["pq_decode"] = dec
+        add_timing(dec, 1, ms, plain, lib, b_ms, nbytes, 0, peaks["bf16"],
+                   peaks)
+    rows["pq_decode"] = close_row(dec)
 
     # --- pq_lut_gather at B=1 (memory mode's fc route at B <= 2)
-    lg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "max_abs_err": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
+    lg = new_row()
     for name in ALEXNET_FCS:
         i, _, p = geo[name]
         _, h, w, c = shapes[i]
@@ -211,18 +266,12 @@ def phase_kernels(geo, spec, dev, flush, peaks):
         log(f"time pq_lut_gather {name} B={b} kernel_ms={ms:.5f} "
             f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
             f"(bytes {nbytes}, adds {ops})")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", b_ms),
-                       ("t_bytes", nbytes / peaks["bytes"]),
-                       ("t_ops", ops / peaks["f32"])):
-            lg[key] += v
-    lg["bound_by"] = "bytes" if lg.pop("t_bytes") >= lg.pop("t_ops") \
-        else "operations"
-    rows["pq_lut_gather"] = lg
+        add_timing(lg, 1, ms, plain, lib, b_ms, nbytes, ops, peaks["f32"],
+                   peaks)
+    rows["pq_lut_gather"] = close_row(lg)
 
     # --- pq_fc_fused at B=256 (timed: the main path's batch) and B=3
-    fu = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "max_abs_err": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
+    fu = new_row()
     for b in (256, 3):
         for name in ALEXNET_FCS:
             i, _, p = geo[name]
@@ -265,15 +314,9 @@ def phase_kernels(geo, spec, dev, flush, peaks):
                 f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, "
                 f"flop {ops})")
             if b == 256:
-                for key, v in (("ms", ms), ("plain_ms", plain),
-                               ("library_ms", lib), ("bound_ms", b_ms),
-                               ("t_bytes", nbytes / peaks["bytes"]),
-                               ("t_ops", ops / peaks["bf16"])):
-                    fu[key] += v
-    fu["bound_by"] = "bytes" if fu.pop("t_bytes") >= fu.pop("t_ops") \
-        else "operations"
-    rows["pq_fc_fused"] = fu
-    rows["pq_decode"].pop("bytes")
+                add_timing(fu, 1, ms, plain, lib, b_ms, nbytes, ops,
+                           peaks["bf16"], peaks)
+    rows["pq_fc_fused"] = close_row(fu)
 
     # the kernels' other paths, off AlexNet's shapes: Cin not a multiple of
     # 8 (no 16-byte x loads), a codebook span too large to stage (K=128,
@@ -310,32 +353,308 @@ def phase_kernels(geo, spec, dev, flush, peaks):
     return rows
 
 
-def phase_end_to_end(spec, params, dev, gpu_name):
-    """Phase 5: auto and memory at B=256 and B=1; returns the launch counts
-    of the whole phase."""
-    from qcnn_tpu_torch.models import network, prepare, synth
+# ResNet-50's convs that memory mode runs through pq_conv_fused: conv2 of
+# these blocks' stage, (block key, spatial size, such convs a forward)
+RESNET50_FUSED = (("s2b1", 14, 5), ("s3b1", 7, 2))
+
+
+def phase_slice2_kernels(spec, geo, rparams, dev, flush, peaks):
+    """Phases 3 and 4 for pq_conv_fused (ResNet-50's fused convs at B=64,
+    times a forward: 5 at 14x14 and 2 at 7x7), pq_fc (AlexNet fc6-8, times
+    at B=256) and lrn_fused (AlexNet's two LRNs at B=256); then lrn_fused's
+    own entry point on those shapes, counted. Returns (rows, counts of the
+    entry-point run)."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.core import LRNSpec
     from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.ops import lut as lut_ops
+    from qcnn_tpu_torch.ops.cuda import lrn_fused, pq_conv_fused, pq_fc
+
+    gen = np.random.default_rng(11)
+    tgen = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def conv_params(p):
+        return {"codebooks": t(p["codebooks"], torch.bfloat16),
+                "assignments": t(p["assignments"]),
+                "bias": t(p["bias"], torch.float32)}
+
+    def check_conv(x, params, pad, label):
+        got = pq_conv_fused.pq_conv_fused(x, params, stride=1, pad=pad)
+        want = pq_conv_fused.conv_fused_plain(
+            x, params["codebooks"], params["assignments"], params["bias"],
+            pad=pad)
+        err = (got - want).abs().max().item()
+        scale = max(1e-6, want.abs().max().item())
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"pq_conv_fused {label}: max_abs_err {err} "
+                                 f"> 1e-4 x {scale}")
+        log(f"check pq_conv_fused {label} max_abs_err={err:.3e} "
+            f"(rtol 1e-4 of {scale:.3e})")
+        return err
+
+    # --- pq_conv_fused at ResNet-50's fused geometries, B=64
+    cf = new_row()
+    for key, hw, per_fwd in RESNET50_FUSED:
+        params = conv_params(rparams[key]["conv2"])
+        cout, kh, _, s = params["assignments"].shape
+        _, k, d = params["codebooks"].shape
+        b, cin = 64, cout
+        x = t(gen.standard_normal((b, hw, hw, cin)), torch.bfloat16)
+        label = f"resnet50 {key}.conv2 B={b} {hw}x{hw} {cin}->{cout}"
+        cf["max_abs_err"] = max(cf["max_abs_err"],
+                                check_conv(x, params, 1, label))
+        # library: cuDNN on the decoded bf16 weight (OHWI memory, a
+        # channels_last OIHW view), as decode at load runs it
+        w = lut_ops.decode_conv_kernel(params["codebooks"],
+                                       params["assignments"], cin)
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        ms = time_ms(lambda: pq_conv_fused.pq_conv_fused(
+            x, params, stride=1, pad=1), flush)
+        plain = time_ms(lambda: pq_conv_fused.conv_fused_plain(
+            x, params["codebooks"], params["assignments"], params["bias"],
+            pad=1), flush)
+        lib = time_ms(lambda: F.conv2d(xn, wn, padding=1), flush)
+        nbytes = (b * hw * hw * cin * 2 + cout * kh * kh * s + s * k * d * 2
+                  + cout * 4 + b * hw * hw * cout * 4)
+        ops = 2 * b * hw * hw * kh * kh * cin * cout
+        b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
+        log(f"time pq_conv_fused {label} kernel_ms={ms:.5f} "
+            f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
+            f"bound_by={by} (bytes {nbytes}, flop {ops}) x{per_fwd} a forward")
+        add_timing(cf, per_fwd, ms, plain, lib, b_ms, nbytes, ops,
+                   peaks["bf16"], peaks)
+    rows["pq_conv_fused"] = close_row(cf)
+    # off ResNet-50's shapes: ragged B, spatial, Cin (not a multiple of 8),
+    # Cout and S; D in {1, 2, 4}; pad 0, 1, 2; 5x5 taps
+    for b, h, w, cin, cout, kh, pad, s, k, d in (
+            (3, 9, 11, 32, 128, 3, 1, 8, 32, 4),
+            (1, 14, 14, 48, 64, 5, 2, 24, 128, 2),
+            (2, 7, 7, 50, 70, 3, 1, 13, 16, 4),
+            (3, 6, 5, 40, 33, 3, 0, 40, 64, 1),
+            (5, 8, 8, 300, 200, 3, 1, 75, 128, 4)):
+        params = {"codebooks": t(gen.standard_normal((s, k, d)) * 0.3,
+                                 torch.bfloat16),
+                  "assignments": t(gen.integers(0, k, (cout, kh, kh, s),
+                                                dtype=np.uint8)),
+                  "bias": t(gen.standard_normal(cout), torch.float32)}
+        x = t(gen.standard_normal((b, h, w, cin)), torch.bfloat16)
+        check_conv(x, params, pad, f"ragged B={b} {h}x{w} {cin}->{cout} "
+                   f"k={kh} pad={pad} S={s} K={k} D={d}")
+
+    # --- pq_fc at AlexNet fc6-8 (times at B=256) and B=3
+    shapes = spec.feature_shapes(batch=1)
+    fc = new_row()
+    for b in (256, 3):
+        for name in ALEXNET_FCS:
+            i, _, p = geo[name]
+            _, h, w, c = shapes[i]
+            cin = h * w * c
+            cb = t(p["codebooks"], torch.bfloat16)
+            ids = t(p["assignments"])
+            bias = t(p["bias"], torch.float32)
+            x = t(gen.standard_normal((b, cin)), torch.bfloat16)
+            lut = lut_ops.build_lut(x, cb).contiguous()
+            got = pq_fc.gather_accumulate(lut, ids, bias)
+            want = pq_fc.lut_gather_plain(lut, ids, bias)
+            err = (got - want).abs().max().item()
+            scale = max(1e-6, want.abs().max().item())
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"pq_fc {name} B={b}: max_abs_err "
+                                     f"{err} > 1e-5 x {scale}")
+            fc["max_abs_err"] = max(fc["max_abs_err"], err)
+            log(f"check pq_fc {name} B={b} max_abs_err={err:.3e} "
+                f"(rtol 1e-5 of {scale:.3e})")
+            s, k, _ = cb.shape
+            cout = ids.shape[0]
+            # a stride-0 view: gather reads it without a (B, S, Cout) copy
+            idx = ids.long().t().expand(b, s, cout)
+            ms = time_ms(lambda: pq_fc.gather_accumulate(lut, ids, bias),
+                         flush)
+            plain = time_ms(lambda: pq_fc.lut_gather_plain(lut, ids, bias),
+                            flush, reps=5)
+            lib = time_ms(lambda: torch.gather(lut, 2, idx).sum(1) + bias,
+                          flush, reps=5)
+            nbytes = b * s * k * 4 + cout * s + cout * 4 + b * cout * 4
+            ops = b * cout * s
+            b_ms, by = bound(nbytes, ops, peaks["f32"], peaks)
+            log(f"time pq_fc {name} B={b} kernel_ms={ms:.5f} "
+                f"plain_ms={plain:.5f} library_ms={lib:.5f} "
+                f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, "
+                f"adds {ops})")
+            if b == 256:
+                add_timing(fc, 1, ms, plain, lib, b_ms, nbytes, ops,
+                           peaks["f32"], peaks)
+    rows["pq_fc"] = close_row(fc)
+
+    # --- lrn_fused at AlexNet's two LRN shapes, B=256, bf16
+    lrns = [(spec.layers[i], spec.feature_shapes(batch=256)[i])
+            for i, layer in enumerate(spec.layers)
+            if isinstance(layer, LRNSpec)]
+    lr = new_row()
+    inputs = []
+    for layer, shape in lrns:
+        kw = dict(size=layer.size, alpha=layer.alpha, beta=layer.beta,
+                  k=layer.k)
+        x = torch.randn(shape, generator=tgen, device=dev).mul_(3).to(
+            torch.bfloat16)
+        inputs.append((x, kw))
+        want = lrn_fused.lrn_plain(x, **kw).float()
+        ulp = torch.ldexp(torch.ones_like(want),
+                          torch.frexp(want).exponent - 8)
+        for window in lrn_fused.WINDOWS:
+            diff = (lrn_fused.lrn_fused(x, window=window, **kw).float()
+                    - want).abs()
+            if not bool((diff <= ulp).all()):
+                raise AssertionError(f"lrn_fused {tuple(shape)} {window}: "
+                                     "more than one bf16 ulp off")
+            lr["max_abs_err"] = max(lr["max_abs_err"], diff.max().item())
+        log(f"check lrn_fused {tuple(shape)} bf16 windows={lrn_fused.WINDOWS}"
+            f" max_abs_err={lr['max_abs_err']:.3e} (<= 1 bf16 ulp each)")
+        del want, ulp, diff
+        xn = x.permute(0, 3, 1, 2)
+        ms = time_ms(lambda: lrn_fused.lrn_fused(x, **kw), flush)
+        plain = time_ms(lambda: lrn_fused.lrn_plain(x, **kw), flush)
+        lib = time_ms(lambda: F.local_response_norm(xn, **kw), flush)
+        nbytes = 2 * x.numel() * x.element_size()
+        b_ms, by = bound(nbytes, 0, peaks["f32"], peaks)
+        log(f"time lrn_fused {tuple(shape)} kernel_ms={ms:.5f} "
+            f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
+            f"bound_by={by} (bytes {nbytes})")
+        add_timing(lr, 1, ms, plain, lib, b_ms, nbytes, 0, peaks["f32"],
+                   peaks)
+    rows["lrn_fused"] = close_row(lr)
+    # float32, other ranks, channel counts and betas
+    for shape in ((4, 7, 7, 96), (5, 130), (2, 3, 3, 256)):
+        for beta in (0.75, 0.5, 1.0, 0.6):
+            kw = dict(size=5, alpha=1e-4, beta=beta, k=2.0)
+            x = t(gen.standard_normal(shape) * 3, torch.float32)
+            want = lrn_fused.lrn_plain(x, **kw)
+            err = (lrn_fused.lrn_fused(x, **kw) - want).abs().max().item()
+            if not err <= 1e-6 * want.abs().max().item():
+                raise AssertionError(f"lrn_fused f32 {shape} beta={beta}: "
+                                     f"max_abs_err {err}")
+        log(f"check lrn_fused f32 {shape} betas 0.75/0.5/1.0/0.6 "
+            "(rtol 1e-6)")
+
+    # lrn_fused's own entry point, as its users call it (no forward does)
+    cuda_ops.reset_launches()
+    for x, kw in inputs:
+        lrn_fused.lrn_fused(x, **kw)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launches()
+    if counts != {name: (len(inputs) if name == "lrn_fused" else 0)
+                  for name in counts}:
+        raise AssertionError(f"lrn_fused entry point: launches {counts}")
+    return rows, counts
+
+
+def tensor_bytes(params) -> int:
+    """Bytes of every tensor in a nested list/dict of params."""
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    if isinstance(params, dict):
+        return sum(tensor_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(tensor_bytes(v) for v in params if v is not None)
+    return 0
+
+
+def drive(label: str, fwd, b: int, classes: int, steps: int, per_fwd: dict,
+          gpu_name: str, resident: int, prep_s: float,
+          prof_steps: int = 3) -> tuple[torch.Tensor, dict]:
+    """One run of a path: counts set to 0 just before, 2 warm-up forwards,
+    3 timed loops of `steps` forwards (the median loop's ms/step is
+    reported, with the range: the host is shared and B=1 is host-bound),
+    `prof_steps` profiled ones (none when 0), counts read just after and
+    held to `per_fwd` (launches a forward; 0 for a kernel it does not name).
+    Returns the probabilities and the counts."""
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+
+    cuda_ops.reset_launches()
+    out = fwd()
+    fwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fwd()
+        torch.cuda.synchronize()
+        loop_ms.append((time.perf_counter() - t0) / steps * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if prof_steps:
+        profile_steps(fwd, prof_steps, label)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launches()
+    n_fwd = 2 + len(loop_ms) * steps + prof_steps
+    for name, got in counts.items():
+        n = per_fwd.get(name, 0)
+        if got != n * n_fwd:
+            raise AssertionError(f"{label}: {name} launched {got} times, "
+                                 f"expected {n} per forward x {n_fwd}")
+    out = out.float()
+    if out.shape != (b, classes):
+        raise AssertionError(f"{label}: output shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite probabilities")
+    row_sum_err = (out.sum(1) - 1).abs().max().item()
+    if row_sum_err > 1e-3:
+        raise AssertionError(f"{label}: rows sum to 1 +- {row_sum_err}")
+    ms = float(np.median(loop_ms))
+    log(f"e2e {label} img/s={b / ms * 1e3:.1f} ms/step={ms:.4f} "
+        f"(range {min(loop_ms):.4f}-{max(loop_ms):.4f} over {len(loop_ms)} "
+        f"loops of {steps}) prepare_s={prep_s:.2f} "
+        f"resident_param_bytes={resident} peak_alloc_bytes={peak} "
+        f"launches={ {k: v // n_fwd for k, v in counts.items() if v} } "
+        f"per forward card={gpu_name}")
+    return out, counts
+
+
+def agree(label: str, ref: torch.Tensor, got: torch.Tensor, max_dprob: float,
+          min_top1: float) -> None:
+    err = (ref - got).abs().max().item()
+    top1 = (ref.argmax(1) == got.argmax(1)).float().mean().item()
+    log(f"e2e {label}: max_abs_err(probs)={err:.3e} "
+        f"top1_agreement={top1:.4f}")
+    if not (err <= max_dprob and top1 >= min_top1):
+        raise AssertionError(f"{label}: max|dprob| {err} (limit {max_dprob}), "
+                             f"top-1 agreement {top1} (limit {min_top1})")
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def phase_end_to_end(spec, params, dev, gpu_name):
+    """Phases 5 and 6: AlexNet auto and memory at B=256 and B=1, then the
+    fc_impl='pallas' arm. Returns the launch counts of each path and the
+    probabilities of each run."""
+    from qcnn_tpu_torch.models import network, prepare, synth
 
     x_all = torch.from_numpy(synth.random_input(spec, 256, seed=1)).to(dev)
     expect = {  # launches per forward of each kernel, by strategy and batch
-        ("auto", 256): {"pq_decode": 0, "pq_lut_gather": 0, "pq_fc_fused": 0},
-        ("auto", 1): {"pq_decode": 0, "pq_lut_gather": 0, "pq_fc_fused": 0},
-        ("memory", 256): {"pq_decode": 5, "pq_lut_gather": 0,
-                          "pq_fc_fused": 3},
-        ("memory", 1): {"pq_decode": 5, "pq_lut_gather": 3, "pq_fc_fused": 0},
+        ("auto", "auto", 256): {},
+        ("auto", "auto", 1): {},
+        ("memory", "memory", 256): {"pq_decode": 5, "pq_fc_fused": 3},
+        ("memory", "memory", 1): {"pq_decode": 5, "pq_lut_gather": 3},
+        ("auto", "pallas", 256): {"pq_fc": 3},
+        ("auto", "pallas", 1): {"pq_fc": 3},
     }
-    probs = {}
-    cuda_ops.reset_launches()
-    totals = {name: 0 for name in cuda_ops.KERNELS}
-    for (mode, b), per_fwd in expect.items():
+    probs, counts = {}, {}
+    for (conv_mode, fc_mode, b), per_fwd in expect.items():
         t0 = time.perf_counter()
         prepared, conv_impls, fc_impls = prepare.prepare_params(
-            spec, params, batch_hint=b, conv_impl=mode, fc_impl=mode,
+            spec, params, batch_hint=b, conv_impl=conv_mode, fc_impl=fc_mode,
             dtype=torch.bfloat16, device=dev)
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
-        resident = sum(v.numel() * v.element_size() for p in prepared
-                       if p is not None for v in p.values())
         x = x_all[:b]
 
         def fwd():
@@ -343,59 +662,60 @@ def phase_end_to_end(spec, params, dev, gpu_name):
                                    conv_impls=conv_impls, fc_impls=fc_impls,
                                    compute_dtype=torch.bfloat16, device=dev)
 
-        before = cuda_ops.launches()
-        out = fwd()
-        fwd()
-        steps = 10 if b > 1 else 50
-        prof_steps = 3
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        pallas = fc_mode == "pallas"
+        label = (f"alexnet {fc_mode} B={b} "
+                 f"fc_impls={sorted(set(fc_impls) - {'-'})}")
+        probs[(fc_mode, b)], run_counts = drive(
+            label, fwd, b, spec.num_classes,
+            steps=(5 if b > 1 else 20) if pallas else (10 if b > 1 else 50),
+            per_fwd=per_fwd, gpu_name=gpu_name,
+            resident=tensor_bytes(prepared), prep_s=prep_s,
+            prof_steps=0 if pallas else 3)
+        add_counts(counts.setdefault(f"alexnet {fc_mode}", {}), run_counts)
+    for mode in ("memory", "pallas"):
+        for b in (256, 1):
+            agree(f"alexnet {mode} vs auto B={b}", probs[("auto", b)],
+                  probs[(mode, b)], 1e-2, 0.99)
+    return counts
+
+
+def phase_resnet(dev, gpu_name):
+    """Phase 7: full-width ResNet-50 through build_family_forward, decode at
+    load and memory mode, at B=64 and B=1. Returns the launch counts of the
+    memory-mode path."""
+    from qcnn_tpu_torch.models import common, resnet, synth
+
+    spec = resnet.resnet50()
+    t0 = time.perf_counter()
+    params = synth.random_resnet_pq_params(spec, seed=0)
+    log(f"resnet50 synthetic params seconds={time.perf_counter() - t0:.2f}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x_all = torch.randn((64, spec.in_size, spec.in_size, 3), generator=gen,
+                        device=dev)
+    per_fwd = {"memory": {"pq_conv_fused": 7, "pq_decode": 46},
+               "decode": {}}
+    probs, counts = {}, {}
+    for mode in ("decode", "memory"):
         t0 = time.perf_counter()
-        for _ in range(steps):
-            fwd()
+        prepared, fwd_fn, _ = common.build_family_forward(
+            "resnet", spec, params, memory=mode == "memory",
+            compute_dtype=torch.bfloat16, device=dev)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        profile_steps(fwd, prof_steps, f"{mode} B={b}")
-        after = cuda_ops.launches()
-        n_fwd = steps + 2 + prof_steps
-        for name, n in per_fwd.items():
-            got = after[name] - before[name]
-            if got != n * n_fwd:
-                raise AssertionError(
-                    f"{mode} B={b}: {name} launched {got} times, expected "
-                    f"{n} per forward x {n_fwd}")
-            totals[name] += got
-        out = out.float()
-        if out.shape != (b, spec.num_classes):
-            raise AssertionError(f"{mode} B={b}: output shape {out.shape}")
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"{mode} B={b}: non-finite probabilities")
-        row_sum_err = (out.sum(1) - 1).abs().max().item()
-        if row_sum_err > 1e-3:
-            raise AssertionError(f"{mode} B={b}: rows sum to 1 +- "
-                                 f"{row_sum_err}")
-        probs[(mode, b)] = out
-        log(f"e2e {mode} B={b} fc_impls={sorted(set(fc_impls) - {'-'})} "
-            f"img/s={b * steps / dt:.1f} ms/step={dt / steps * 1e3:.4f} "
-            f"prepare_s={prep_s:.2f} resident_param_bytes={resident} "
-            f"peak_alloc_bytes={peak} "
-            f"launches={ {k: after[k] - before[k] for k in per_fwd} } "
-            f"card={gpu_name}")
-    final = cuda_ops.launches()
-    if final != totals:
-        raise AssertionError(f"launch counts {final} != per-run sum {totals}")
-    for b in (256, 1):
-        a, m = probs[("auto", b)], probs[("memory", b)]
-        err = (a - m).abs().max().item()
-        top1 = (a.argmax(1) == m.argmax(1)).float().mean().item()
-        log(f"e2e memory vs auto B={b}: max_abs_err(probs)={err:.3e} "
-            f"top1_agreement={top1:.4f}")
-        if err > 1e-2 or top1 < 0.99:
-            raise AssertionError(f"memory vs auto B={b}: max|dprob| {err} "
-                                 f"(limit 1e-2), top-1 agreement {top1} "
-                                 "(limit 0.99)")
-    return final
+        prep_s = time.perf_counter() - t0
+        for b in (64, 1):
+            x = x_all[:b]
+            probs[(mode, b)], run_counts = drive(
+                f"resnet50 {mode} B={b}", lambda: fwd_fn(prepared, x), b,
+                spec.num_classes, steps=10 if b > 1 else 30,
+                per_fwd=per_fwd[mode], gpu_name=gpu_name,
+                resident=tensor_bytes(prepared), prep_s=prep_s)
+            if mode == "memory":
+                add_counts(counts, run_counts)
+        del prepared
+    for b in (64, 1):
+        agree(f"resnet50 memory vs decode B={b}", probs[("decode", b)],
+              probs[("memory", b)], 5e-3, 0.99)
+    return counts
 
 
 def main() -> int:
@@ -404,7 +724,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from qcnn_tpu_torch.models import synth, zoo
+    from qcnn_tpu_torch.models import resnet, synth, zoo
     from qcnn_tpu_torch.ops.cuda import _build
 
     # phase 1: device
@@ -432,17 +752,36 @@ def main() -> int:
     spec = zoo.alexnet()
     params = synth.random_pq_params(spec, seed=0)
     geo = alexnet_geometry(spec, params)
+    rparams = synth.random_resnet_pq_params(resnet.resnet50(), seed=0)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
 
-    # phases 3-4: kernels vs plain versions, then timed
+    # phases 3-4: kernels vs plain versions, then timed; lrn_fused's own
+    # entry point
     rows = phase_kernels(geo, spec, dev, flush, peaks)
+    new_rows, lrn_counts = phase_slice2_kernels(spec, geo, rparams, dev,
+                                                flush, peaks)
+    rows |= new_rows
     del flush
 
-    # phase 5: the main path, end to end
-    launches = phase_end_to_end(spec, params, dev, gpu_name)
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+    # phases 5-7: the paths, end to end
+    counts = phase_end_to_end(spec, params, dev, gpu_name)
+    counts["resnet50 memory"] = phase_resnet(dev, gpu_name)
+    counts["lrn_fused entry point"] = lrn_counts
+    owners = {  # the paths that own each kernel
+        "pq_decode": ("alexnet memory", "resnet50 memory"),
+        "pq_lut_gather": ("alexnet memory",),
+        "pq_fc_fused": ("alexnet memory",),
+        "lrn_fused": ("lrn_fused entry point",),
+        "pq_conv_fused": ("resnet50 memory",),
+        "pq_fc": ("alexnet pallas",),
+    }
+    launches = {}
+    for name, paths in owners.items():
+        for path_name in paths:
+            if counts[path_name].get(name, 0) == 0:
+                raise AssertionError(f"{name} was never launched on the "
+                                     f"path {path_name!r}")
+        launches[name] = sum(c.get(name, 0) for c in counts.values())
 
     sources = {
         "pq_decode": ("qcnn_tpu_torch/csrc/pq_decode.cu",
@@ -451,6 +790,12 @@ def main() -> int:
                           "qcnn_tpu/ops/pallas/pq_lut_gather.py:67"),
         "pq_fc_fused": ("qcnn_tpu_torch/csrc/pq_fc_fused.cu",
                         "qcnn_tpu/ops/pallas/pq_fc_fused.py:125"),
+        "lrn_fused": ("qcnn_tpu_torch/csrc/lrn_fused.cu",
+                      "qcnn_tpu/ops/pallas/lrn_fused.py:102"),
+        "pq_conv_fused": ("qcnn_tpu_torch/csrc/pq_conv_fused.cu",
+                          "qcnn_tpu/ops/pallas/pq_conv_fused.py:93"),
+        "pq_fc": ("qcnn_tpu_torch/csrc/pq_fc.cu",
+                  "qcnn_tpu/ops/pallas/pq_fc.py:61"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -1,17 +1,30 @@
-"""Memory-mode FC routing, the same rule as ``qcnn_tpu/models/common.py``.
+"""Shared knobs of the model families and the memory-mode FC routing, the
+same rules as ``qcnn_tpu/models/common.py``.
 
-The port resolves ``fc_impl="memory"`` exactly as the JAX package does, so
-both run the same program for the same model and batch. The thresholds
-below were measured on a TPU (qcnn_tpu/models/common.py:35-66) and are not
-facts about the H100: re-deriving them on the card is queued in
-ROADMAP.md.
+The port resolves memory mode exactly as the JAX package does, so both run
+the same program for the same model and batch. The thresholds below were
+measured on a TPU (qcnn_tpu/models/common.py:20-66) and are not facts about
+the H100: re-deriving them on the card is queued in ROADMAP.md A7.
+
+MEMORY_IMPL is the PQ conv strategy of the families (ResNet) when their
+params still carry codebooks: "memory_fused" runs the fused decode-conv
+kernel where ``ops.conv.memory_fused_route`` qualifies the geometry and the
+in-step OHWI decode elsewhere. MEMORY_FC_IMPL selects the FC formulation;
+"auto" applies :func:`fc_memory_impl`.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib
+
 import torch
 
+from qcnn_tpu_torch._device import default_dtype, resolve_device
+
+MEMORY_IMPL = "memory_fused"
 MEMORY_FC_IMPL = "auto"
+FAMILIES = ("resnet",)
 
 
 def fc_memory_impl(batch: int, params: dict, dtype=None) -> str:
@@ -38,3 +51,60 @@ def fc_memory_impl(batch: int, params: dict, dtype=None) -> str:
     if batch <= 2:
         return "lutgather"
     return "fgather"
+
+
+def serving_defaults(model: str) -> dict:
+    """Per-family serving config {max_batch, buckets}, copied from the JAX
+    package. Its ladders come from batch sweeps on a TPU
+    (qcnn_tpu/models/common.py:69-102) and were not measured on the H100;
+    ROADMAP.md A9 queues that."""
+    m = model.lower()
+    if m.startswith("vit"):
+        return {"max_batch": 32, "buckets": (1, 8, 32)}
+    if "resnet101" in m:
+        return {"max_batch": 128, "buckets": (1, 8, 32, 64, 128)}
+    if "resnet152" in m:
+        return {"max_batch": 64, "buckets": (1, 8, 32, 64)}
+    return {"max_batch": 64, "buckets": (1, 8, 32, 64)}
+
+
+def make_cast(compute_dtype):
+    """Activation-cast closure shared by the family forwards; ``.dtype``
+    carries the dtype the convs and GEMMs emit (their ``out_dtype``)."""
+    def cast(v):
+        return v.to(compute_dtype) if compute_dtype is not None else v
+    cast.dtype = compute_dtype
+    return cast
+
+
+def build_family_forward(family, spec, params, *, memory=False,
+                         compute_dtype=None, device=None):
+    """The family wiring of the serving and eval surfaces: compute-dtype
+    default, prepare, and the softmax-emitting partial forward.
+
+    family: a registry name ('resnet') or the module itself.
+    compute_dtype: None means bf16 on the card and f32 on the CPU; int8 is
+      not ported yet (ROADMAP.md A7).
+    device: None means "cuda"; pass "cpu" to run the plain versions.
+    Returns (prepared_params, forward_fn(params, x), act_dtype)."""
+    if isinstance(family, str):
+        if family.startswith("vit"):
+            raise NotImplementedError(
+                "the ViT family is not ported yet: ROADMAP.md A9")
+        if family not in FAMILIES:
+            raise ValueError(f"unknown model family {family!r}; expected "
+                             f"one of {FAMILIES}")
+        family = importlib.import_module(f"qcnn_tpu_torch.models.{family}")
+    device = resolve_device(device)
+    if compute_dtype is None:
+        compute_dtype = default_dtype(device)
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"compute dtype {compute_dtype} is not ported yet: only float32 "
+            "and bfloat16 are (int8: ROADMAP.md A7)")
+    prepared = family.prepare_params(spec, params, dtype=compute_dtype,
+                                     memory=memory, device=device)
+    fwd = functools.partial(family.forward, spec=spec,
+                            compute_dtype=compute_dtype, with_softmax=True,
+                            device=device)
+    return prepared, fwd, compute_dtype

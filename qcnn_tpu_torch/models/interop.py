@@ -2,8 +2,10 @@
 
 ``params_from_jax`` turns a ``qcnn_tpu`` parameter list — NumPy arrays, raw
 PQ or as ``qcnn_tpu.models.prepare.prepare_params`` returns them — into the
-port's. It imports neither JAX nor ml_dtypes: a bfloat16 NumPy array is
-recognised by its dtype's name and moved as its 16 bits.
+port's; ``family_params_from_jax`` does the same for the nested dict of a
+model family (``qcnn_tpu.models.resnet.prepare_params`` or
+``quantize_params``). Neither imports JAX or ml_dtypes: a bfloat16 NumPy
+array is recognised by its dtype's name and moved as its 16 bits.
 """
 
 from __future__ import annotations
@@ -29,35 +31,48 @@ def array_to_tensor(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _layer_from_jax(p: dict, device: torch.device) -> dict:
+    """One layer dict: PQ arrays keep their dtype (assignments uint8, OPQ
+    perm as int64); a dense HWIO conv kernel comes across in the port's
+    layout (OHWI memory, HWIO view) and a (Cin, Cout) fc weight as the
+    (Cin, Cout) view of (Cout, Cin) memory."""
+    if any(key in p for key in _INT8_KEYS):
+        raise NotImplementedError(
+            "int8 params are not ported yet: ROADMAP.md A7")
+    q = {}
+    for key, v in p.items():
+        t = array_to_tensor(v, "cpu")
+        if key == "kernel":
+            q[key] = conv_kernel_tensor(t.permute(3, 0, 1, 2), t.dtype,
+                                        device)
+        elif key == "weight":
+            q[key] = fc_weight_tensor(t.t(), t.dtype, device)
+        elif key == "perm":
+            q[key] = t.to(device=device, dtype=torch.int64)
+        else:
+            q[key] = t.to(device)
+    return q
+
+
 def params_from_jax(params: Sequence[Optional[dict]],
                     device=None) -> list:
-    """The port's params for a ``qcnn_tpu`` param list.
-
-    PQ dicts keep their arrays (codebooks in their dtype, assignments uint8,
-    bias, OPQ perm as int64). A dense HWIO conv kernel comes across in the
-    port's layout (OHWI memory, HWIO view) and a (Cin, Cout) fc weight as
-    the (Cin, Cout) view of (Cout, Cin) memory, both in their dtype.
-    device: None means "cuda"."""
+    """The port's params for a ``qcnn_tpu`` param list (None entries stay
+    None). device: None means "cuda"."""
     device = resolve_device(device)
-    out: list = []
-    for p in params:
-        if p is None:
-            out.append(None)
-            continue
-        if any(key in p for key in _INT8_KEYS):
-            raise NotImplementedError(
-                "int8 params are not ported yet: ROADMAP.md A7")
-        q = {}
-        for key, v in p.items():
-            t = array_to_tensor(v, "cpu")
-            if key == "kernel":
-                q[key] = conv_kernel_tensor(t.permute(3, 0, 1, 2), t.dtype,
-                                            device)
-            elif key == "weight":
-                q[key] = fc_weight_tensor(t.t(), t.dtype, device)
-            elif key == "perm":
-                q[key] = t.to(device=device, dtype=torch.int64)
-            else:
-                q[key] = t.to(device)
-        out.append(q)
-    return out
+    return [None if p is None else _layer_from_jax(p, device)
+            for p in params]
+
+
+def family_params_from_jax(params: dict, device=None) -> dict:
+    """The port's params for a ``qcnn_tpu`` family's nested dict: each
+    layer dict (one whose values are arrays) comes across as in
+    :func:`params_from_jax`, and a block (a dict of layer dicts) keeps its
+    keys. device: None means "cuda"."""
+    device = resolve_device(device)
+
+    def walk(p: dict) -> dict:
+        if all(isinstance(v, dict) for v in p.values()):
+            return {k: walk(v) for k, v in p.items()}
+        return _layer_from_jax(p, device)
+
+    return {name: walk(p) for name, p in params.items()}

@@ -1,0 +1,332 @@
+"""ResNet-v1.5 family with product-quantized convolutions and classifier.
+
+Port of ``qcnn_tpu/models/resnet.py``. The graph is Python composition of
+ops, the spec is static data, and parameters are a nested dict: "stem",
+"s{stage}b{block}" (a dict of "conv1", "conv2", optional "conv3" and
+"proj") and "fc", each a layer dict of tensors. PQ applies per conv
+(including 1x1 projections) over the input-channel axis and to the final
+FC. Activations are NHWC, as in the JAX package.
+
+In memory mode (``prepare_params(memory=True)``) the PQ convs run
+``models.common.MEMORY_IMPL`` ("memory_fused": the ``pq_conv_fused`` kernel
+for qualifying 3x3 convs, the ``pq_decode`` kernel elsewhere) and the fc
+runs ``common.fc_memory_impl``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from qcnn_tpu_torch._device import resolve_device
+from qcnn_tpu_torch.models import common
+from qcnn_tpu_torch.models.common import make_cast as _make_cast
+from qcnn_tpu_torch.models.prepare import (
+    _cast_pq,
+    _decode_rows_np,
+    _np,
+    _tensor,
+    conv_kernel_tensor,
+    fc_weight_tensor,
+    inverse_permutation,
+)
+from qcnn_tpu_torch.ops import conv as conv_ops
+from qcnn_tpu_torch.ops import fc as fc_ops
+from qcnn_tpu_torch.ops.misc import caffe_max_pool, relu
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetSpec:
+    name: str
+    stage_depths: tuple[int, ...]      # blocks per stage, e.g. (3, 4, 6, 3)
+    stage_channels: tuple[int, ...]    # block out channels per stage
+    num_classes: int = 1000
+    in_size: int = 224
+    bottleneck: bool = True
+
+
+def resnet50() -> ResNetSpec:
+    return ResNetSpec("ResNet50", (3, 4, 6, 3), (256, 512, 1024, 2048))
+
+
+def resnet18() -> ResNetSpec:
+    return ResNetSpec(
+        "ResNet18", (2, 2, 2, 2), (64, 128, 256, 512), bottleneck=False
+    )
+
+
+def resnet101() -> ResNetSpec:
+    return ResNetSpec("ResNet101", (3, 4, 23, 3), (256, 512, 1024, 2048))
+
+
+def resnet152() -> ResNetSpec:
+    return ResNetSpec("ResNet152", (3, 8, 36, 3), (256, 512, 1024, 2048))
+
+
+RESNETS = {"resnet50": resnet50, "resnet18": resnet18,
+           "resnet101": resnet101, "resnet152": resnet152}
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction (NumPy: the same seed gives the JAX package's bits)
+# ---------------------------------------------------------------------------
+
+def _conv_param(rng, kh, kw, cin, cout):
+    fan = kh * kw * cin
+    return {
+        "kernel": (rng.standard_normal((kh, kw, cin, cout)) /
+                   np.sqrt(fan)).astype(np.float32),
+        "bias": np.zeros(cout, np.float32),
+    }
+
+
+def _block_channels(spec: ResNetSpec, stage: int) -> tuple[int, int]:
+    cout = spec.stage_channels[stage]
+    mid = cout // 4 if spec.bottleneck else cout
+    return mid, cout
+
+
+def block_layout(spec: ResNetSpec):
+    """(block key, stride, [(conv name, kh, cin, cout)]) for every block,
+    in forward order. A projection ("proj", 1x1) exists where the channels
+    change: ResNet-v1.5, so stage-0 block-0 of ResNet-18 keeps the identity
+    shortcut."""
+    out = []
+    cin = 64
+    for s, depth in enumerate(spec.stage_depths):
+        mid, cout = _block_channels(spec, s)
+        for b in range(depth):
+            stride = 2 if (s > 0 and b == 0) else 1
+            if spec.bottleneck:
+                convs = [("conv1", 1, cin, mid), ("conv2", 3, mid, mid),
+                         ("conv3", 1, mid, cout)]
+            else:
+                convs = [("conv1", 3, cin, mid), ("conv2", 3, mid, cout)]
+            if cin != cout:
+                convs.append(("proj", 1, cin, cout))
+            out.append((f"s{s}b{b}", stride, convs))
+            cin = cout
+    return out
+
+
+def init_dense_params(spec: ResNetSpec, seed: int = 0) -> dict:
+    """Random dense parameters (NumPy), the same draws as the JAX package's
+    ``init_dense_params``."""
+    rng = np.random.default_rng(seed)
+    params: dict = {"stem": _conv_param(rng, 7, 7, 3, 64)}
+    for key, _, convs in block_layout(spec):
+        params[key] = {name: _conv_param(rng, kh, kh, ci, co)
+                       for name, kh, ci, co in convs}
+    cin = spec.stage_channels[-1]
+    params["fc"] = {
+        "weight": (rng.standard_normal((cin, spec.num_classes)) /
+                   np.sqrt(cin)).astype(np.float32),
+        "bias": np.zeros(spec.num_classes, np.float32),
+    }
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _apply_conv(x, p, *, stride=1, pad=0, out_dtype=None):
+    if "codebooks" in p:
+        # in-step PQ decode formulation: models/common.py MEMORY_IMPL
+        return conv_ops.pq_conv(x, p, stride=stride, pad=pad,
+                                impl=common.MEMORY_IMPL, out_dtype=out_dtype)
+    if "kernel_q" in p:
+        raise NotImplementedError(
+            "int8 conv layers are not ported yet: ROADMAP.md A7")
+    return conv_ops.conv_dense(x, p["kernel"], p["bias"], stride=stride,
+                               pad=pad, out_dtype=out_dtype)
+
+
+def _apply_fc(x, p, out_dtype=None):
+    if "codebooks" in p:
+        return fc_ops.pq_fc(x, p, impl=common.fc_memory_impl(
+            x.shape[0], p, x.dtype), out_dtype=out_dtype)
+    if "weight_q" in p:
+        raise NotImplementedError(
+            "int8 fc layers are not ported yet: ROADMAP.md A7")
+    return fc_ops.fc_dense(x, p["weight"], p["bias"], out_dtype=out_dtype)
+
+
+def _run_block(x, block, stride: int, bottleneck: bool, cast):
+    """One residual block (shared by forward and forward_segments)."""
+    od = getattr(cast, "dtype", None)
+    shortcut = x
+    if "proj" in block:
+        shortcut = cast(_apply_conv(x, block["proj"], stride=stride,
+                                    out_dtype=od))
+    if bottleneck:
+        y = cast(relu(_apply_conv(x, block["conv1"], out_dtype=od)))
+        y = cast(relu(_apply_conv(y, block["conv2"], stride=stride, pad=1,
+                                  out_dtype=od)))
+        y = cast(_apply_conv(y, block["conv3"], out_dtype=od))
+    else:
+        y = cast(relu(_apply_conv(x, block["conv1"], stride=stride, pad=1,
+                                  out_dtype=od)))
+        y = cast(_apply_conv(y, block["conv2"], pad=1, out_dtype=od))
+    return relu(y + shortcut)
+
+
+def _run_stem(x, params, cast):
+    x = cast(relu(_apply_conv(x, params["stem"], stride=2, pad=3,
+                              out_dtype=getattr(cast, "dtype", None))))
+    # floor-mode pool: 112 -> 56, as torchvision
+    return caffe_max_pool(x, kernel=3, stride=2, pad=1, ceil_mode=False)
+
+
+def _run_head(x, params, cast, with_softmax: bool):
+    x = x.float().mean(dim=(1, 2))  # global average pool
+    logits = _apply_fc(cast(x), params["fc"]).float()
+    if with_softmax:
+        logits = torch.softmax(logits, dim=-1)
+    return logits
+
+
+def forward(params: dict, x, *, spec: ResNetSpec, compute_dtype=None,
+            with_softmax: bool = False, device=None) -> torch.Tensor:
+    """(B, H, W, 3) NHWC -> (B, num_classes) float32 logits (or
+    probabilities).
+
+    compute_dtype: activation dtype between layers; None keeps x's dtype.
+    device: None means "cuda"; pass "cpu" to run the plain versions. The
+      params must already be there (``prepare_params(device=...)``)."""
+    device = resolve_device(device)
+    x = torch.as_tensor(x, device=device)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    cast = _make_cast(compute_dtype)
+    x = _run_stem(x, params, cast)
+    for key, stride, _ in block_layout(spec):
+        x = _run_block(x, params[key], stride, spec.bottleneck, cast)
+    return _run_head(x, params, cast, with_softmax)
+
+
+def forward_segments(spec: ResNetSpec, *, compute_dtype=None,
+                     with_softmax: bool = False):
+    """[(name, fn(x, params) -> x)] whose composition equals forward on
+    tensors already on the params' device: "stem+pool", one per stage,
+    "head"."""
+    cast = _make_cast(compute_dtype)
+    layout = block_layout(spec)
+    segs = [(
+        "stem+pool",
+        lambda x, p: _run_stem(
+            x.to(compute_dtype) if compute_dtype is not None else x, p, cast),
+    )]
+    for s in range(len(spec.stage_depths)):
+        blocks = [(key, stride) for key, stride, _ in layout
+                  if key.startswith(f"s{s}b")]
+
+        def stage(x, p, blocks=blocks):
+            for key, stride in blocks:
+                x = _run_block(x, p[key], stride, spec.bottleneck, cast)
+            return x
+
+        segs.append((f"stage{s}", stage))
+    segs.append(("head", lambda x, p: _run_head(x, p, cast, with_softmax)))
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# Quantization / preparation
+# ---------------------------------------------------------------------------
+
+def quantize_params(spec: ResNetSpec, dense: dict, **kwargs) -> dict:
+    """The quantizer is not ported yet (ROADMAP.md A11); synthetic PQ
+    params come from ``models.synth.random_resnet_pq_params``."""
+    raise NotImplementedError(
+        "resnet.quantize_params needs the quantizer, which is not ported "
+        "yet: ROADMAP.md A11")
+
+
+def _conv_cin_map(spec: ResNetSpec) -> dict:
+    """True input-channel count per conv (the codebook span may overhang),
+    keyed "stem", "s{s}b{b}.{conv}" and "fc"."""
+    shapes: dict = {"stem": 3}
+    for key, _, convs in block_layout(spec):
+        for name, _, ci, _ in convs:
+            shapes[f"{key}.{name}"] = ci
+    shapes["fc"] = spec.stage_channels[-1]
+    return shapes
+
+
+def prepare_params(spec: ResNetSpec, params: dict, dtype=torch.bfloat16, *,
+                   memory: bool = False, device=None) -> dict:
+    """The nested params on the device, ready for :func:`forward`.
+
+    Decode at load (memory=False): PQ tensors are decoded to dense on the
+    host in NumPy (an OPQ permutation folded in by its inverse), then cast
+    to ``dtype``; a conv kernel is HWIO logically and OHWI in memory, an fc
+    weight (Cin, Cout) logically and (Cout, Cin) in memory.
+    memory=True keeps PQ layers compressed: codebooks cast to ``dtype``,
+    assignments uint8 unchanged, bias float32, and the OPQ ``perm`` kept for
+    the ops to apply; the forward then decodes in the step.
+
+    dtype: torch.float32 or torch.bfloat16 (int8: ROADMAP.md A7).
+    device: None means "cuda"; pass "cpu" to prepare for the CPU."""
+    device = resolve_device(device)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"resnet.prepare_params(dtype={dtype}) is not ported yet: only "
+            "float32 and bfloat16 are (int8: ROADMAP.md A7)")
+
+    def dense(kind: str, w_rows: np.ndarray, bias) -> dict:
+        """w_rows: OHWI for a kernel, (Cout, Cin) for a weight."""
+        bias_t = _tensor(_np(bias).astype(np.float32), torch.float32, device)
+        if kind == "kernel":
+            return {"kernel": conv_kernel_tensor(w_rows, dtype, device),
+                    "bias": bias_t}
+        return {"weight": fc_weight_tensor(w_rows, dtype, device),
+                "bias": bias_t}
+
+    def prep(p: dict, cin: int, is_fc: bool) -> dict:
+        if "codebooks" in p:
+            if memory:
+                return _cast_pq(p, dtype, device)
+            cb = _np(p["codebooks"]).astype(np.float32)
+            asmt = _np(p["assignments"])
+            if is_fc:
+                w = _decode_rows_np(cb, asmt, cin)  # (Cout, Cin)
+                if "perm" in p:
+                    w = w[:, inverse_permutation(_np(p["perm"]))]
+                return dense("weight", w, p["bias"])
+            cout, kh, kw, s = asmt.shape
+            w = _decode_rows_np(cb, asmt.reshape(-1, s), cin).reshape(
+                cout, kh, kw, cin)
+            if "perm" in p:
+                w = w[..., inverse_permutation(_np(p["perm"]))]
+            return dense("kernel", w, p["bias"])
+        if any(key in p for key in ("kernel_q", "weight_q")):
+            raise NotImplementedError(
+                "int8 layers are not ported yet: ROADMAP.md A7")
+        if "kernel" in p:
+            return dense("kernel", _np(p["kernel"]).transpose(3, 0, 1, 2),
+                         p["bias"])
+        return dense("weight", _np(p["weight"]).T, p["bias"])
+
+    cins = _conv_cin_map(spec)
+    prepared: dict = {}
+    for name, p in params.items():
+        if name in ("stem", "fc"):
+            prepared[name] = prep(p, cins[name], is_fc=name == "fc")
+        else:  # a block
+            prepared[name] = {k: prep(v, cins[f"{name}.{k}"], is_fc=False)
+                              for k, v in p.items()}
+    return prepared
+
+
+def fold_batchnorm(conv: dict, gamma, beta, mean, var, eps=1e-5) -> dict:
+    """Fold an inference BatchNorm into the preceding dense conv (NumPy):
+    W' = W * gamma/sqrt(var+eps); b' = (b - mean) * scale + beta."""
+    scale = np.asarray(gamma) / np.sqrt(np.asarray(var) + eps)
+    return {
+        "kernel": np.asarray(conv["kernel"]) * scale,  # broadcast over Cout
+        "bias": (np.asarray(conv["bias"]) - np.asarray(mean)) * scale
+        + np.asarray(beta),
+    }

@@ -9,6 +9,10 @@ policy mirrors the shipped AlexNet configuration (SURVEY.md §2a): conv layers
 use 8-wide sub-spaces with 128 codewords; FC layers 4-wide with 32 codewords;
 a final classifier FC gets scalar sub-spaces with 16 codewords, matching
 fc8's (4096, 16, 1) codebook.
+
+``random_resnet_pq_params`` is the port's own: the ResNet family's PQ
+params come from the quantizer in the JAX package, which the port does not
+have yet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from qcnn_tpu_torch.core import (
     pq_conv_params,
     pq_fc_params,
 )
+from qcnn_tpu_torch.models import resnet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +128,43 @@ def random_dense_params(spec: ModelSpec, seed: int = 0) -> list:
             params.append(dense_fc_params(wei, bias))
         else:
             params.append(None)
+    return params
+
+
+def random_resnet_pq_params(spec, seed: int = 0) -> dict:
+    """Synthetic PQ params for a ``models.resnet.ResNetSpec`` (NumPy), in the
+    layout and geometry of the JAX package's ``resnet.quantize_params``
+    (which needs the quantizer, not ported yet) at its defaults: convs with
+    cin >= 16 get D=4, K=128 and S = ceil(cin / 4); the stem stays dense;
+    the fc gets D=4, K=32. Codewords are scaled like
+    ``resnet.init_dense_params`` (1/sqrt(kh*kw*cin)), so decoded weights
+    have its variance and the activations stay finite through 50 bf16
+    layers; biases are small."""
+    rng = np.random.default_rng(seed)
+    d = 4  # sub-space width of convs and fc
+
+    def pq_conv(kh, cin, cout):
+        if cin < 16:
+            return {"kernel": (rng.standard_normal((kh, kh, cin, cout))
+                               / np.sqrt(kh * kh * cin)).astype(np.float32),
+                    "bias": np.zeros(cout, np.float32)}
+        s = -(-cin // d)
+        return pq_conv_params(
+            (rng.standard_normal((s, 128, d))
+             / np.sqrt(kh * kh * cin)).astype(np.float32),
+            rng.integers(0, 128, size=(cout, kh, kh, s), dtype=np.uint8),
+            (rng.standard_normal(cout) * 0.01).astype(np.float32))
+
+    params: dict = {"stem": pq_conv(7, 3, 64)}
+    for key, _, convs in resnet.block_layout(spec):
+        params[key] = {name: pq_conv(kh, ci, co)
+                       for name, kh, ci, co in convs}
+    cin = spec.stage_channels[-1]
+    s = -(-cin // d)
+    params["fc"] = pq_fc_params(
+        (rng.standard_normal((s, 32, d)) / np.sqrt(cin)).astype(np.float32),
+        rng.integers(0, 32, size=(spec.num_classes, s), dtype=np.uint8),
+        (rng.standard_normal(spec.num_classes) * 0.01).astype(np.float32))
     return params
 
 

@@ -15,7 +15,10 @@ Strategy names keep the JAX vocabulary. Every in-step decode (``indecode``,
 ``pq_decode`` kernel and differs only in the logical layout it hands to
 ``conv_dense``: the JAX package's one-hot decodes give the same bits as its
 gather (qcnn_tpu/ops/lut.py:107-111) and only work around a slow TPU
-gather. ``decode`` is the plain PyTorch gather.
+gather. ``decode`` is the plain PyTorch gather. ``fusedconv`` runs the
+``pq_conv_fused`` kernel, ``fc1x1`` the ``pq_fc_fused`` kernel over the
+flattened pixels, and ``memory_fused`` picks one of them or the OHWI decode
+per layer (:func:`memory_fused_route`).
 """
 
 from __future__ import annotations
@@ -24,16 +27,20 @@ import torch
 import torch.nn.functional as F
 
 from qcnn_tpu_torch.ops import lut as lut_ops
-from qcnn_tpu_torch.ops.cuda import pq_decode
+from qcnn_tpu_torch.ops.cuda import pq_conv_fused, pq_decode, pq_fc_fused
 
 _NOT_PORTED = {
     "lut": "ROADMAP.md A4 (the LUT + one-hot conv formulation)",
     "gemm": "ROADMAP.md A4 (the im2col GEMM formulation)",
     "memory": "ROADMAP.md A4 (the per-op 'memory' im2col/decode mix)",
-    "fusedconv": "ROADMAP.md B5 (qcnn_tpu/ops/pallas/pq_conv_fused.py)",
-    "memory_fused": "ROADMAP.md B5 (qcnn_tpu/ops/pallas/pq_conv_fused.py)",
-    "fc1x1": "ROADMAP.md B5 (the 1x1 reroute through pq_fc_fused)",
 }
+
+# memory_fused's 1x1 reroute gates, copied from the JAX package
+# (qcnn_tpu/ops/conv.py:30-41). _FC1X1_MAX_ROWS = 0 keeps the reroute off,
+# as there: the rule was measured on a TPU (re-deriving it on the H100 is
+# queued in ROADMAP.md A7). The explicit impl "fc1x1" stays available.
+_FC1X1_MIN_RATIO = 4
+_FC1X1_MAX_ROWS = 0
 
 # in-step decode impl -> the logical kernel layout it hands to conv_dense
 _INSTEP_LAYOUTS = {
@@ -43,6 +50,38 @@ _INSTEP_LAYOUTS = {
     "indecode_hwoi": "hwoi",
     "gdecode_iohw": "iohw",
 }
+_IMPLS = ("decode", "fusedconv", "memory_fused", "fc1x1", *_INSTEP_LAYOUTS)
+
+
+def memory_fused_route(params: dict, x_shape, x_dtype, *, stride: int,
+                       pad: int, groups: int = 1) -> str:
+    """The impl that ``pq_conv(impl="memory_fused")`` runs for one conv
+    geometry, by the JAX package's rule (qcnn_tpu/ops/conv.py:44-86):
+    'fusedconv' for bf16 stride-1 ungrouped square multi-tap convs with
+    cin >= 256 whose one-image grid fits the TPU kernel's VMEM budget;
+    'fc1x1' for qualifying 1x1 reductions (off: _FC1X1_MAX_ROWS = 0);
+    'indecode_ohwi' otherwise, including every float32 caller."""
+    b, h, w, cin = x_shape
+    if x_dtype != torch.bfloat16:
+        # both fused kernels compute with bf16 activations; f32 callers
+        # keep the f32-exact decode
+        return "indecode_ohwi"
+    a_shape = params["assignments"].shape
+    multi_tap = a_shape[1] > 1
+    if (multi_tap and pq_conv_fused.supports(params, stride=stride,
+                                             groups=groups, cin=cin)
+            and pq_conv_fused.fits_vmem(h, w, pad, a_shape[1], a_shape[2])):
+        return "fusedconv"
+    cout = a_shape[0]
+    # fc1x1 slices x[:, ::stride] first: ceil(h/stride) rows
+    rows = b * (-(-h // stride)) * (-(-w // stride))
+    k_cnt = params["codebooks"].shape[1]
+    if (a_shape[1] == 1 and a_shape[2] == 1 and groups == 1 and pad == 0
+            and cin >= _FC1X1_MIN_RATIO * cout
+            and rows <= _FC1X1_MAX_ROWS
+            and k_cnt <= pq_fc_fused.MAX_CODEWORDS):
+        return "fc1x1"
+    return "indecode_ohwi"
 
 
 def conv_dense(
@@ -110,6 +149,27 @@ def pq_conv_decode(
     )
 
 
+def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
+                   groups: int, out_dtype) -> torch.Tensor:
+    """A 1x1 conv as an FC over the flattened pixels, through the
+    ``pq_fc_fused`` kernel (decode name "gather"); the stride is a slice of
+    x, exact for a 1x1 kernel with pad 0."""
+    a = params["assignments"]
+    if a.shape[1] != 1 or a.shape[2] != 1 or groups != 1 or pad != 0:
+        raise ValueError(
+            "fc1x1 requires an ungrouped 1x1 kernel with pad 0; got "
+            f"taps {a.shape[1]}x{a.shape[2]}, groups={groups}, pad={pad}")
+    if stride > 1:
+        x = x[:, ::stride, ::stride, :]
+    b, h, w, cin = x.shape
+    fc_p = {"codebooks": params["codebooks"],
+            "assignments": a.reshape(a.shape[0], a.shape[3]),
+            "bias": params["bias"]}
+    y = pq_fc_fused.pq_fc_fused(x.reshape(b * h * w, cin), fc_p,
+                                decode="gather").reshape(b, h, w, -1)
+    return y.to(out_dtype) if out_dtype is not None else y
+
+
 def pq_conv(
     x: torch.Tensor,
     params: dict,
@@ -124,7 +184,7 @@ def pq_conv(
     if impl in _NOT_PORTED:
         raise NotImplementedError(
             f"pq_conv impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}")
-    if impl != "decode" and impl not in _INSTEP_LAYOUTS:
+    if impl not in _IMPLS:
         raise ValueError(f"unknown pq_conv impl: {impl}")
     if "perm" in params:
         # OPQ channel permutation (quantizer/opq.py): codebooks are shared
@@ -135,6 +195,27 @@ def pq_conv(
         if groups > 1:
             perm = torch.cat([perm + g * cg for g in range(groups)])
         x = torch.index_select(x, -1, perm)
+    if impl == "fusedconv":
+        # the explicit choice keeps the kernel at any dtype
+        if not pq_conv_fused.supports(params, stride=stride, groups=groups):
+            raise ValueError(
+                "pq_conv_fused: unsupported geometry (use 'memory_fused' "
+                "for the auto-fallback mix)")
+        out = pq_conv_fused.pq_conv_fused(x, params, stride=stride, pad=pad,
+                                          groups=groups)
+        return out.to(out_dtype) if out_dtype is not None else out
+    if impl == "memory_fused":
+        route = memory_fused_route(params, x.shape, x.dtype, stride=stride,
+                                   pad=pad, groups=groups)
+        if route in ("fusedconv", "fc1x1"):
+            # x is permuted already: the recursion must not see 'perm'
+            noperm = {k: v for k, v in params.items() if k != "perm"}
+            return pq_conv(x, noperm, stride=stride, pad=pad, groups=groups,
+                           impl=route, out_dtype=out_dtype)
+        impl = route
+    if impl == "fc1x1":
+        return _pq_conv_fc1x1(x, params, stride=stride, pad=pad,
+                              groups=groups, out_dtype=out_dtype)
     return pq_conv_decode(
         x, params, stride=stride, pad=pad, groups=groups,
         layout=_INSTEP_LAYOUTS.get(impl), out_dtype=out_dtype,

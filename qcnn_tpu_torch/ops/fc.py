@@ -7,8 +7,9 @@ per-subspace gather-accumulate).
 
 Strategy names keep the JAX vocabulary. In-step decodes (``indecode``,
 ``gdecode``) run the ``pq_decode`` kernel, ``lutgather`` the
-``pq_lut_gather`` kernel and ``fused``/``fgather`` the ``pq_fc_fused``
-kernel; ``gather`` and ``decode`` are plain PyTorch.
+``pq_lut_gather`` kernel, ``pallas`` the ``pq_fc`` kernel and
+``fused``/``fgather`` the ``pq_fc_fused`` kernel; ``gather`` and ``decode``
+are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -16,11 +17,15 @@ from __future__ import annotations
 import torch
 
 from qcnn_tpu_torch.ops import lut as lut_ops
-from qcnn_tpu_torch.ops.cuda import pq_decode, pq_fc_fused, pq_lut_gather
+from qcnn_tpu_torch.ops.cuda import (
+    pq_decode,
+    pq_fc as pq_fc_kernel,
+    pq_fc_fused,
+    pq_lut_gather,
+)
 
 _NOT_PORTED = {
     "onehot": "ROADMAP.md A4 (the one-hot LUT contraction)",
-    "pallas": "ROADMAP.md B6 (qcnn_tpu/ops/pallas/pq_fc.py)",
 }
 
 
@@ -99,6 +104,8 @@ def pq_fc(x: torch.Tensor, params: dict, impl: str = "gather",
         # 'gdecode' by its Pallas gather; both are the same bits, and both
         # run the pq_decode kernel here
         return pq_fc_indecode(x, params, out_dtype=out_dtype)
+    if impl == "pallas":
+        return pq_fc_kernel.pq_fc_pallas(x, params)
     if impl == "lutgather":
         return pq_lut_gather.pq_fc_lut_gather(x, params)
     if impl == "fused":

@@ -22,7 +22,10 @@ from qcnn_tpu.ops.pallas import (
 from qcnn_tpu_torch.ops.cuda import (
     KERNELS,
     launches,
+    lrn_fused,
+    pq_conv_fused,
     pq_decode,
+    pq_fc,
     pq_fc_fused,
     pq_lut_gather,
 )
@@ -206,8 +209,18 @@ def test_plain_versions_do_not_count_launches(rng):
     pq_fc_fused.pq_fc_fused(T(x), tp)
     pq_lut_gather.pq_fc_lut_gather(T(x), tp)
     pq_decode.decode_fc_weight_gather(tp["codebooks"], tp["assignments"], 32)
+    pq_fc.pq_fc_pallas(T(x), tp)
+    lrn_fused.lrn_fused(T(x).reshape(3, 4, 8), size=5, alpha=1e-4, beta=0.75,
+                        k=1.0)
+    conv_p = {"codebooks": T(rng.standard_normal((16, 16, 4))),
+              "assignments": T(rng.integers(0, 16, (8, 3, 3, 16),
+                                            dtype=np.uint8)),
+              "bias": torch.zeros(8)}
+    pq_conv_fused.pq_conv_fused(torch.zeros((1, 5, 5, 64)), conv_p, stride=1,
+                                pad=1)
     assert launches() == before
-    assert set(KERNELS) == {"pq_decode", "pq_lut_gather", "pq_fc_fused"}
+    assert set(KERNELS) == {"pq_decode", "pq_lut_gather", "pq_fc_fused",
+                            "lrn_fused", "pq_conv_fused", "pq_fc"}
 
 
 def test_non_cpu_tensors_never_fall_back(rng):

@@ -164,10 +164,9 @@ def test_unported_strategies_raise_not_implemented():
     params = _params()
     x = jsynth.random_input(JSPEC, batch=1, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tnet.forward(params, x, spec=TSPEC, conv_impl="memory_fused",
-                     device="cpu")
+        tnet.forward(params, x, spec=TSPEC, conv_impl="lut", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tnet.forward(params, x, spec=TSPEC, fc_impl="pallas", device="cpu")
+        tnet.forward(params, x, spec=TSPEC, fc_impl="onehot", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         tprepare(TSPEC, params, dtype=torch.int8, device="cpu")
 

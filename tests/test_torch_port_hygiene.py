@@ -17,8 +17,11 @@ import torch
 import qcnn_tpu_torch
 from qcnn_tpu_torch import _device
 from qcnn_tpu_torch.core import FCSpec, ModelSpec, SoftmaxSpec
-from qcnn_tpu_torch.models import network, prepare, synth
-from qcnn_tpu_torch.models.interop import params_from_jax
+from qcnn_tpu_torch.models import common, network, prepare, resnet, synth
+from qcnn_tpu_torch.models.interop import (
+    family_params_from_jax,
+    params_from_jax,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "qcnn_tpu", "ml_dtypes")
@@ -36,7 +39,10 @@ def _port_modules():
 
 def test_port_modules_import_no_jax_in_a_fresh_interpreter():
     mods = _port_modules()
-    assert "qcnn_tpu_torch.ops.cuda.pq_fc_fused" in mods
+    for name in ("ops.cuda.pq_fc_fused", "ops.cuda.pq_conv_fused",
+                 "ops.cuda.pq_fc", "ops.cuda.lrn_fused", "models.resnet",
+                 "models.common", "models.synth", "models.interop"):
+        assert f"qcnn_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -119,4 +125,26 @@ def test_entry_points_never_run_on_the_cpu_unasked(monkeypatch):
     assert prepared[0]["weight"].dtype == torch.float32  # f32 on the CPU
     out = network.forward(prepared, x, spec=spec, conv_impls=conv_impls,
                           fc_impls=fc_impls, device="cpu")
+    assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
+
+
+def test_family_entry_points_never_run_on_the_cpu_unasked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = resnet.ResNetSpec("t", (1,), (64,), num_classes=3, in_size=16,
+                             bottleneck=False)
+    params = synth.random_resnet_pq_params(spec, seed=0)
+    x = np.zeros((1, 16, 16, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet.prepare_params(spec, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        common.build_family_forward("resnet", spec, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        family_params_from_jax(params)
+    prepared, fwd, act = common.build_family_forward("resnet", spec, params,
+                                                     device="cpu")
+    assert act == torch.float32  # f32 on the CPU
+    assert prepared["s0b0"]["conv1"]["kernel"].dtype == torch.float32
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet.forward(prepared, x, spec=spec)
+    out = fwd(prepared, x)
     assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
