@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch + CUDA port (qcnn_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # everything, as below
+    python3 chip_smoke.py --only-fused  # phases 1-2 and the two decode-GEMMs
 
 Phases, each fatal on failure (any exception exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit; TF32 off.
-2. build: compiles the kernels in qcnn_tpu_torch/csrc with nvcc for sm_90a.
-3. kernels vs plain versions at every AlexNet geometry of the main path:
+2. build: compiles the kernels in qcnn_tpu_torch/csrc with nvcc for sm_90a
+   and prints what ptxas reports for each kernel (registers, shared memory,
+   spills, warnings) under the kernel's name.
+3. kernels vs plain versions at every geometry of the main paths:
+   pq_fc_fused at AlexNet fc6-8 (B=256, 3, 64 and 1024, both decode names)
+   and pq_conv_fused at ResNet-50's two fused geometries (B=64 and B=1),
+   all of which must plan the wgmma kernels; each split contraction is
+   launched twice and must give the same bits; odd shapes the wgmma
+   kernels take and ragged ones that go to the general kernels.
    pq_decode bit-exact (conv1-5, fc6-8), pq_lut_gather at B=1 (fc6-8),
-   pq_fc_fused at B=256 and B=3 (fc6-8, both decode names).
-   pq_conv_fused at ResNet-50's two fused geometries (B=64) and ragged
-   ones, pq_fc at AlexNet fc6-8 (B=256 and B=3), lrn_fused at AlexNet's two
+   pq_fc at AlexNet fc6-8 (B=256 and B=3), lrn_fused at AlexNet's two
    LRN shapes (B=256, bf16, all three window names) and small f32 ones.
-4. timing (CUDA events, L2 flushed before each launch) of each kernel, its
-   plain version and one PyTorch library call computing the same function,
-   beside the least time the card could take (its bound). Then lrn_fused's
-   own entry point, counted: no forward runs it (as in the JAX package).
+4. timing (CUDA events, L2 flushed before each launch, every repetition
+   enqueued behind a device spin so the host's pace is not in the number)
+   of each kernel, its plain version and one PyTorch library call computing
+   the same function, beside the least time the card could take (its
+   bound); for the two decode-GEMMs also the general kernel on the same
+   inputs. Then lrn_fused's own entry point, counted (no forward runs it,
+   as in the JAX package), and the general kernels through the public
+   entry points on ragged shapes, counted.
 5. end to end: full-width AlexNet-PQ, synthetic params (seed 0), bf16,
    strategy 'auto' (decode at load) and 'memory' (in-step kernels) at
    B=256 and B=1; the launch counts show that memory mode ran the kernels,
@@ -29,13 +39,16 @@ Phases, each fatal on failure (any exception exits non-zero):
    memory mode at B=64 (the family's max_batch) and B=1, each profiled.
    Memory mode launches pq_conv_fused 7 times a forward (conv2 of stage 2
    blocks 1-5 and stage 3 blocks 1-2) and pq_decode 46 times (the other 45
-   PQ convs and the fc head); decode at load launches no kernel.
+   PQ convs and the fc head); decode at load launches no kernel. No path
+   launches a general kernel.
 
 Limits (the script fails past them):
-- kernels against their plain versions: pq_conv_fused 1e-4 and pq_fc 1e-5
-  of the largest |output| (the same bf16 operands or f32 LUT, f32 sums in
-  another order); lrn_fused within one bf16 ulp of each bf16 output and
-  1e-6 of the largest |output| in f32 (f32 window sums in another order).
+- kernels against their plain versions: pq_fc_fused and pq_conv_fused
+  (wgmma and general kernels) 1e-4 and pq_fc 1e-5 of the largest |output|
+  (the same bf16 operands or f32 LUT, f32 sums in another order: per split
+  of the contraction, then the splits in order); lrn_fused within one bf16
+  ulp of each bf16 output and 1e-6 of the largest |output| in f32 (f32
+  window sums in another order).
 - AlexNet memory and pallas against auto: max |dprob| <= 1e-2, top-1 equal
   on >= 99 % of rows (the random net's softmax saturates).
 - ResNet-50 memory against decode at load: max |dprob| <= 5e-3, top-1 equal
@@ -48,6 +61,7 @@ Limits (the script fails past them):
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
+neither; with --only-fused it stops after the decode-GEMMs and prints
 neither.
 """
 
@@ -71,6 +85,7 @@ PEAKS = {
 ALEXNET_CONVS = ("conv1", "conv2", "conv3", "conv4", "conv5")
 ALEXNET_FCS = ("fc6", "fc7", "fc8")
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
+SPIN_CYCLES = 18_000_000  # about 10 ms of device clock
 
 
 def log(*args) -> None:
@@ -91,11 +106,15 @@ def bound(bytes_moved: float, ops: float, ops_rate: float,
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
-    """Median device time of one call, with the L2 flushed before each."""
+    """Median device time of one call, with the L2 flushed before each.
+    The device first spins for about 10 ms while the host enqueues every
+    repetition behind it, so that a slow host (Python around a launch, two
+    launches a call) does not show up as device time."""
     fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
     for i in range(reps):
         flush.zero_()
         starts[i].record()
@@ -139,6 +158,17 @@ def profile_steps(fwd, steps: int, label: str) -> None:
     log(f"  host: self_cpu_ms/step={host_ms:.4f}; top: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / steps / 1e3:.4f} ms "
         f"x{e.count // steps}" for e in top))
+
+
+def log_ptxas(build_log: str) -> None:
+    """The registers, shared memory and spills that ptxas reports, each
+    under the (mangled) name of the kernel it compiled."""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            log("  ptxas: kernel " + line.split("'")[1])
+        elif ("Used" in line or "spill" in line or "error" in line
+              or "warning" in line.lower() or "Potential" in line):
+            log("  ptxas:   " + line.replace("ptxas info    :", "").strip())
 
 
 def new_row() -> dict:
@@ -270,54 +300,6 @@ def phase_kernels(geo, spec, dev, flush, peaks):
                    peaks)
     rows["pq_lut_gather"] = close_row(lg)
 
-    # --- pq_fc_fused at B=256 (timed: the main path's batch) and B=3
-    fu = new_row()
-    for b in (256, 3):
-        for name in ALEXNET_FCS:
-            i, _, p = geo[name]
-            _, h, w, c = shapes[i]
-            cin = h * w * c
-            params = {"codebooks": t(p["codebooks"], torch.bfloat16),
-                      "assignments": t(p["assignments"]),
-                      "bias": t(p["bias"], torch.float32)}
-            x = t(gen.standard_normal((b, cin)), torch.bfloat16)
-            want = pq_fc_fused.fused_plain(x, params["codebooks"],
-                                           params["assignments"],
-                                           params["bias"])
-            scale = max(1e-6, want.abs().max().item())
-            for decode in pq_fc_fused.DECODES:
-                got = pq_fc_fused.pq_fc_fused(x, params, decode=decode)
-                err = (got - want).abs().max().item()
-                if not err / scale <= 1e-4:
-                    raise AssertionError(
-                        f"pq_fc_fused {name} B={b} {decode}: max_abs_err "
-                        f"{err} > 1e-4 x {scale}")
-                fu["max_abs_err"] = max(fu["max_abs_err"], err)
-                log(f"check pq_fc_fused {name} B={b} decode={decode} "
-                    f"max_abs_err={err:.3e} (rtol 1e-4 of {scale:.3e})")
-            s, k, d = params["codebooks"].shape
-            cout = params["assignments"].shape[0]
-            w_io = lut_ops.decode_fc_weight(params["codebooks"],
-                                            params["assignments"], cin)
-            w_io = w_io.contiguous()
-            ms = time_ms(lambda: pq_fc_fused.pq_fc_fused(x, params), flush)
-            plain = time_ms(lambda: pq_fc_fused.fused_plain(
-                x, params["codebooks"], params["assignments"],
-                params["bias"]), flush)
-            lib = time_ms(lambda: torch.matmul(x, w_io), flush)
-            nbytes = (b * cin * 2 + cout * s + s * k * d * 2 + cout * 4
-                      + b * cout * 4)
-            ops = 2 * b * cin * cout
-            b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
-            log(f"time pq_fc_fused {name} B={b} kernel_ms={ms:.5f} "
-                f"plain_ms={plain:.5f} library_ms={lib:.5f} "
-                f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, "
-                f"flop {ops})")
-            if b == 256:
-                add_timing(fu, 1, ms, plain, lib, b_ms, nbytes, ops,
-                           peaks["bf16"], peaks)
-    rows["pq_fc_fused"] = close_row(fu)
-
     # the kernels' other paths, off AlexNet's shapes: Cin not a multiple of
     # 8 (no 16-byte x loads), a codebook span too large to stage (K=128,
     # D=8), ragged B, Cout and S
@@ -358,18 +340,17 @@ def phase_kernels(geo, spec, dev, flush, peaks):
 RESNET50_FUSED = (("s2b1", 14, 5), ("s3b1", 7, 2))
 
 
-def phase_slice2_kernels(spec, geo, rparams, dev, flush, peaks):
-    """Phases 3 and 4 for pq_conv_fused (ResNet-50's fused convs at B=64,
-    times a forward: 5 at 14x14 and 2 at 7x7), pq_fc (AlexNet fc6-8, times
-    at B=256) and lrn_fused (AlexNet's two LRNs at B=256); then lrn_fused's
-    own entry point on those shapes, counted. Returns (rows, counts of the
-    entry-point run)."""
+def phase_other_kernels(spec, geo, dev, flush, peaks):
+    """Phases 3 and 4 for pq_fc (AlexNet fc6-8, times at B=256) and
+    lrn_fused (AlexNet's two LRNs at B=256); then lrn_fused's own entry
+    point on those shapes, counted. Returns (rows, counts of the entry-point
+    run)."""
     import torch.nn.functional as F
 
     from qcnn_tpu_torch.core import LRNSpec
     from qcnn_tpu_torch.ops import cuda as cuda_ops
     from qcnn_tpu_torch.ops import lut as lut_ops
-    from qcnn_tpu_torch.ops.cuda import lrn_fused, pq_conv_fused, pq_fc
+    from qcnn_tpu_torch.ops.cuda import lrn_fused, pq_fc
 
     gen = np.random.default_rng(11)
     tgen = torch.Generator(device=dev).manual_seed(11)
@@ -377,74 +358,6 @@ def phase_slice2_kernels(spec, geo, rparams, dev, flush, peaks):
 
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-    def conv_params(p):
-        return {"codebooks": t(p["codebooks"], torch.bfloat16),
-                "assignments": t(p["assignments"]),
-                "bias": t(p["bias"], torch.float32)}
-
-    def check_conv(x, params, pad, label):
-        got = pq_conv_fused.pq_conv_fused(x, params, stride=1, pad=pad)
-        want = pq_conv_fused.conv_fused_plain(
-            x, params["codebooks"], params["assignments"], params["bias"],
-            pad=pad)
-        err = (got - want).abs().max().item()
-        scale = max(1e-6, want.abs().max().item())
-        if not err <= 1e-4 * scale:
-            raise AssertionError(f"pq_conv_fused {label}: max_abs_err {err} "
-                                 f"> 1e-4 x {scale}")
-        log(f"check pq_conv_fused {label} max_abs_err={err:.3e} "
-            f"(rtol 1e-4 of {scale:.3e})")
-        return err
-
-    # --- pq_conv_fused at ResNet-50's fused geometries, B=64
-    cf = new_row()
-    for key, hw, per_fwd in RESNET50_FUSED:
-        params = conv_params(rparams[key]["conv2"])
-        cout, kh, _, s = params["assignments"].shape
-        _, k, d = params["codebooks"].shape
-        b, cin = 64, cout
-        x = t(gen.standard_normal((b, hw, hw, cin)), torch.bfloat16)
-        label = f"resnet50 {key}.conv2 B={b} {hw}x{hw} {cin}->{cout}"
-        cf["max_abs_err"] = max(cf["max_abs_err"],
-                                check_conv(x, params, 1, label))
-        # library: cuDNN on the decoded bf16 weight (OHWI memory, a
-        # channels_last OIHW view), as decode at load runs it
-        w = lut_ops.decode_conv_kernel(params["codebooks"],
-                                       params["assignments"], cin)
-        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-        ms = time_ms(lambda: pq_conv_fused.pq_conv_fused(
-            x, params, stride=1, pad=1), flush)
-        plain = time_ms(lambda: pq_conv_fused.conv_fused_plain(
-            x, params["codebooks"], params["assignments"], params["bias"],
-            pad=1), flush)
-        lib = time_ms(lambda: F.conv2d(xn, wn, padding=1), flush)
-        nbytes = (b * hw * hw * cin * 2 + cout * kh * kh * s + s * k * d * 2
-                  + cout * 4 + b * hw * hw * cout * 4)
-        ops = 2 * b * hw * hw * kh * kh * cin * cout
-        b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
-        log(f"time pq_conv_fused {label} kernel_ms={ms:.5f} "
-            f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
-            f"bound_by={by} (bytes {nbytes}, flop {ops}) x{per_fwd} a forward")
-        add_timing(cf, per_fwd, ms, plain, lib, b_ms, nbytes, ops,
-                   peaks["bf16"], peaks)
-    rows["pq_conv_fused"] = close_row(cf)
-    # off ResNet-50's shapes: ragged B, spatial, Cin (not a multiple of 8),
-    # Cout and S; D in {1, 2, 4}; pad 0, 1, 2; 5x5 taps
-    for b, h, w, cin, cout, kh, pad, s, k, d in (
-            (3, 9, 11, 32, 128, 3, 1, 8, 32, 4),
-            (1, 14, 14, 48, 64, 5, 2, 24, 128, 2),
-            (2, 7, 7, 50, 70, 3, 1, 13, 16, 4),
-            (3, 6, 5, 40, 33, 3, 0, 40, 64, 1),
-            (5, 8, 8, 300, 200, 3, 1, 75, 128, 4)):
-        params = {"codebooks": t(gen.standard_normal((s, k, d)) * 0.3,
-                                 torch.bfloat16),
-                  "assignments": t(gen.integers(0, k, (cout, kh, kh, s),
-                                                dtype=np.uint8)),
-                  "bias": t(gen.standard_normal(cout), torch.float32)}
-        x = t(gen.standard_normal((b, h, w, cin)), torch.bfloat16)
-        check_conv(x, params, pad, f"ragged B={b} {h}x{w} {cin}->{cout} "
-                   f"k={kh} pad={pad} S={s} K={k} D={d}")
 
     # --- pq_fc at AlexNet fc6-8 (times at B=256) and B=3
     shapes = spec.feature_shapes(batch=1)
@@ -551,6 +464,273 @@ def phase_slice2_kernels(spec, geo, rparams, dev, flush, peaks):
                   for name in counts}:
         raise AssertionError(f"lrn_fused entry point: launches {counts}")
     return rows, counts
+
+
+# shapes off the models' paths. The first group of each kind is taken by
+# the wgmma kernels (Cin = S*D a multiple of 64; ragged B and Cout, D in
+# {1, 2, 4}, K not a power of two); the second goes to the general kernels
+# (Cin not a multiple of 8, a codebook span too large to stage, Cin < S*D).
+# fc: (B, Cin, Cout, S, K, D); conv: (B, H, W, Cin, Cout, kh, pad, S, K, D)
+FC_ODD = ((70, 128, 250, 32, 32, 4), (5, 64, 40, 64, 128, 1),
+          (130, 192, 129, 96, 16, 2), (33, 256, 300, 64, 20, 4),
+          (9, 1024, 520, 256, 32, 4))
+FC_RAGGED = ((70, 58, 250, 15, 32, 4), (5, 3, 40, 1, 128, 8),
+             (130, 130, 129, 33, 16, 4))
+CONV_ODD = ((3, 9, 11, 64, 130, 3, 1, 16, 32, 4),
+            (1, 14, 14, 128, 64, 5, 2, 64, 128, 2),
+            (2, 7, 7, 64, 70, 3, 0, 64, 16, 1),
+            (40, 6, 5, 192, 260, 3, 1, 48, 100, 4),
+            (4, 10, 10, 128, 96, 3, 1, 64, 32, 2))
+CONV_RAGGED = ((3, 9, 11, 32, 128, 3, 1, 8, 32, 4),
+               (1, 14, 14, 48, 64, 5, 2, 24, 128, 2),
+               (2, 7, 7, 50, 70, 3, 1, 13, 16, 4),
+               (3, 6, 5, 40, 33, 3, 0, 40, 64, 1),
+               (5, 8, 8, 300, 200, 3, 1, 75, 128, 4))
+
+
+def phase_fused_kernels(spec, geo, rparams, dev, flush, peaks):
+    """Phases 3 and 4 for the two decode-GEMMs: pq_fc_fused at AlexNet fc6-8
+    (B=256, the main path's batch, summed into the kernel's row; B=3, 64 and
+    1024, the ends of its route) and pq_conv_fused at ResNet-50's two fused
+    geometries (B=64, summed times a forward: 5 at 14x14 and 2 at 7x7; B=1).
+    Each shape is held against the plain version, launched twice where the
+    contraction is split (the two outputs must be the same bits), and timed
+    beside the general kernel on the same inputs. Then the odd and ragged
+    shapes, and the general kernels through the public entry points,
+    counted. Returns (rows, counts of that entry-point run)."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.ops import lut as lut_ops
+    from qcnn_tpu_torch.ops.cuda import pq_conv_fused, pq_fc_fused
+
+    gen = np.random.default_rng(13)
+    shapes = spec.feature_shapes(batch=1)
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def dev_params(p):
+        return {"codebooks": t(p["codebooks"], torch.bfloat16),
+                "assignments": t(p["assignments"]),
+                "bias": t(p["bias"], torch.float32)}
+
+    def random_params(a_shape, s, k, d):
+        return {"codebooks": t(gen.standard_normal((s, k, d)) * 0.3,
+                               torch.bfloat16),
+                "assignments": t(gen.integers(0, k, a_shape, dtype=np.uint8)),
+                "bias": t(gen.standard_normal(a_shape[0]), torch.float32)}
+
+    def hold(name, label, got, want, row, variant):
+        err = (got - want).abs().max().item()
+        scale = max(1e-6, want.abs().max().item())
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{name} {label}: max_abs_err {err} "
+                                 f"> 1e-4 x {scale}")
+        if row is not None:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"check {name} {label} kernel={variant} max_abs_err={err:.3e} "
+            f"(rtol 1e-4 of {scale:.3e})")
+
+    def same_bits(name, label, fn, plan):
+        """Two launches of a split contraction give the same bits."""
+        if plan.splits == 1:
+            return
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"{name} {label}: two launches of the "
+                                 f"{plan.splits}-way split differ")
+        log(f"check {name} {label} splits={plan.splits} two launches "
+            "bit-identical")
+
+    def fc_general(x, params):
+        """The general kernel on a shape the wrapper gives the other one."""
+        cb, ids, bias = (params["codebooks"], params["assignments"],
+                         params["bias"])
+        (b, cin), (s, k, d) = x.shape, cb.shape
+        out = torch.empty((b, ids.shape[0]), dtype=torch.float32, device=dev)
+        pq_fc_fused.GENERAL.launch(
+            x.data_ptr(), cb.data_ptr(), ids.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, cin, s, k, d, ids.shape[0])
+        return out
+
+    def conv_general(x, params, pad):
+        cb, ids, bias = (params["codebooks"], params["assignments"],
+                         params["bias"])
+        (b, h, w, cin), (s, k, d) = x.shape, cb.shape
+        cout, kh = ids.shape[0], ids.shape[1]
+        out = torch.empty((b, h + 2 * pad - kh + 1, w + 2 * pad - kh + 1,
+                           cout), dtype=torch.float32, device=dev)
+        pq_conv_fused.GENERAL.launch(
+            x.data_ptr(), cb.data_ptr(), ids.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, w, cin, s, k, d, cout, kh, pad)
+        return out
+
+    def fc_case(b, cin, params, label, row, timed_into=None):
+        """Check one FC shape; time it when `timed_into` is a row (summed
+        there) or True (logged only)."""
+        x = t(gen.standard_normal((b, cin)), torch.bfloat16)
+        cb, ids, bias = (params["codebooks"], params["assignments"],
+                         params["bias"])
+        s, k, d = cb.shape
+        cout = ids.shape[0]
+        plan = pq_fc_fused.plan(b, cin, cout, s, k, d)
+        want = pq_fc_fused.fused_plain(x, cb, ids, bias)
+        for decode in pq_fc_fused.DECODES:
+            hold("pq_fc_fused", f"{label} decode={decode}",
+                 pq_fc_fused.pq_fc_fused(x, params, decode=decode), want,
+                 row, plan.variant)
+        same_bits("pq_fc_fused", label,
+                  lambda: pq_fc_fused.pq_fc_fused(x, params), plan)
+        if timed_into is None:
+            return plan
+        w_io = lut_ops.decode_fc_weight(cb, ids, cin).contiguous()
+        ms = time_ms(lambda: pq_fc_fused.pq_fc_fused(x, params), flush)
+        plain = time_ms(lambda: pq_fc_fused.fused_plain(x, cb, ids, bias),
+                        flush, reps=10)
+        lib = time_ms(lambda: torch.matmul(x, w_io), flush)
+        nbytes = (b * cin * 2 + cout * s + s * k * d * 2 + cout * 4
+                  + b * cout * 4)
+        ops = 2 * b * cin * cout
+        b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
+        other = ""
+        if plan.variant == "wgmma":
+            hold("pq_fc_fused_general", label, fc_general(x, params), want,
+                 None, "general")
+            other = (f" general_kernel_ms="
+                     f"{time_ms(lambda: fc_general(x, params), flush):.5f}")
+        log(f"time pq_fc_fused {label} kernel={plan.variant} "
+            f"tile_rows={plan.tile_rows} splits={plan.splits} "
+            f"grid={plan.grid} smem={plan.smem_bytes} kernel_ms={ms:.5f}"
+            f"{other} plain_ms={plain:.5f} library_ms={lib:.5f} "
+            f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, flop {ops})")
+        if isinstance(timed_into, dict):
+            add_timing(timed_into, 1, ms, plain, lib, b_ms, nbytes, ops,
+                       peaks["bf16"], peaks)
+        return plan
+
+    def conv_case(b, h, w, cin, params, pad, label, row, timed_into=None,
+                  per_fwd=1):
+        x = t(gen.standard_normal((b, h, w, cin)), torch.bfloat16)
+        cb, ids, bias = (params["codebooks"], params["assignments"],
+                         params["bias"])
+        s, k, d = cb.shape
+        cout, kh = ids.shape[0], ids.shape[1]
+        plan = pq_conv_fused.plan(b, h, w, cin, cout, kh, pad, s, k, d)
+        want = pq_conv_fused.conv_fused_plain(x, cb, ids, bias, pad=pad)
+
+        def run():
+            return pq_conv_fused.pq_conv_fused(x, params, stride=1, pad=pad)
+
+        hold("pq_conv_fused", label, run(), want, row, plan.variant)
+        same_bits("pq_conv_fused", label, run, plan)
+        if timed_into is None:
+            return plan
+        # library: cuDNN on the decoded bf16 weight (OHWI memory, a
+        # channels_last OIHW view), as decode at load runs it
+        wd = lut_ops.decode_conv_kernel(cb, ids, cin)
+        xn, wn = x.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1)
+        ms = time_ms(run, flush)
+        plain = time_ms(lambda: pq_conv_fused.conv_fused_plain(
+            x, cb, ids, bias, pad=pad), flush, reps=10)
+        lib = time_ms(lambda: F.conv2d(xn, wn, padding=pad), flush)
+        ho, wo = want.shape[1], want.shape[2]
+        nbytes = (x.numel() * 2 + ids.numel() + cb.numel() * 2 + cout * 4
+                  + b * ho * wo * cout * 4)
+        ops = 2 * b * ho * wo * kh * kh * cin * cout
+        b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
+        other = ""
+        if plan.variant == "wgmma":
+            hold("pq_conv_fused_general", label, conv_general(x, params, pad),
+                 want, None, "general")
+            other = (" general_kernel_ms=" + format(time_ms(
+                lambda: conv_general(x, params, pad), flush), ".5f"))
+        log(f"time pq_conv_fused {label} kernel={plan.variant} "
+            f"tile_rows={plan.tile_rows} splits={plan.splits} "
+            f"grid={plan.grid} smem={plan.smem_bytes} kernel_ms={ms:.5f}"
+            f"{other} plain_ms={plain:.5f} library_ms={lib:.5f} "
+            f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, flop {ops}) "
+            f"x{per_fwd} a forward")
+        if isinstance(timed_into, dict):
+            add_timing(timed_into, per_fwd, ms, plain, lib, b_ms, nbytes, ops,
+                       peaks["bf16"], peaks)
+        return plan
+
+    fu, fu_gen, cf, cf_gen = new_row(), new_row(), new_row(), new_row()
+
+    # --- pq_fc_fused at AlexNet fc6-8
+    for b in (256, 3, 64, 1024):
+        for name in ALEXNET_FCS:
+            i, _, p = geo[name]
+            _, h, w, c = shapes[i]
+            plan = fc_case(b, h * w * c, dev_params(p), f"{name} B={b}", fu,
+                           timed_into=fu if b == 256 else True)
+            if plan.variant != "wgmma":
+                raise AssertionError(f"pq_fc_fused {name} B={b}: the main "
+                                     f"path's shape planned {plan.variant}")
+    for b, cin, cout, s, k, d in FC_ODD:
+        plan = fc_case(b, cin, random_params((cout, s), s, k, d),
+                       f"odd B={b} Cin={cin} Cout={cout} S={s} K={k} D={d}",
+                       None)
+        if plan.variant != "wgmma":
+            raise AssertionError(f"odd fc shape planned {plan.variant}")
+    for b, cin, cout, s, k, d in FC_RAGGED:
+        plan = fc_case(b, cin, random_params((cout, s), s, k, d),
+                       f"ragged B={b} Cin={cin} Cout={cout} S={s} K={k} "
+                       f"D={d}", fu_gen, timed_into=fu_gen)
+        if plan.variant != "general":
+            raise AssertionError(f"ragged fc shape planned {plan.variant}")
+
+    # --- pq_conv_fused at ResNet-50's fused geometries
+    for b in (64, 1):
+        for key, hw, per_fwd in RESNET50_FUSED:
+            params = dev_params(rparams[key]["conv2"])
+            cout = params["assignments"].shape[0]
+            plan = conv_case(
+                b, hw, hw, cout, params, 1,
+                f"resnet50 {key}.conv2 B={b} {hw}x{hw} {cout}->{cout}", cf,
+                timed_into=cf if b == 64 else True, per_fwd=per_fwd)
+            if plan.variant != "wgmma":
+                raise AssertionError(f"pq_conv_fused {key} B={b}: the main "
+                                     f"path's shape planned {plan.variant}")
+    for b, h, w, cin, cout, kh, pad, s, k, d in CONV_ODD:
+        plan = conv_case(b, h, w, cin,
+                         random_params((cout, kh, kh, s), s, k, d), pad,
+                         f"odd B={b} {h}x{w} {cin}->{cout} k={kh} pad={pad} "
+                         f"S={s} K={k} D={d}", None)
+        if plan.variant != "wgmma":
+            raise AssertionError(f"odd conv shape planned {plan.variant}")
+    for b, h, w, cin, cout, kh, pad, s, k, d in CONV_RAGGED:
+        plan = conv_case(b, h, w, cin,
+                         random_params((cout, kh, kh, s), s, k, d), pad,
+                         f"ragged B={b} {h}x{w} {cin}->{cout} k={kh} "
+                         f"pad={pad} S={s} K={k} D={d}", cf_gen,
+                         timed_into=cf_gen)
+        if plan.variant != "general":
+            raise AssertionError(f"ragged conv shape planned {plan.variant}")
+    rows = {"pq_fc_fused": close_row(fu),
+            "pq_fc_fused_general": close_row(fu_gen),
+            "pq_conv_fused": close_row(cf),
+            "pq_conv_fused_general": close_row(cf_gen)}
+
+    # the general kernels through the public entry points, as a caller with
+    # such a shape reaches them (no model of the smoke has one)
+    cuda_ops.reset_launches()
+    b, cin, cout, s, k, d = FC_RAGGED[0]
+    pq_fc_fused.pq_fc_fused(t(gen.standard_normal((b, cin)), torch.bfloat16),
+                            random_params((cout, s), s, k, d))
+    b, h, w, cin, cout, kh, pad, s, k, d = CONV_RAGGED[0]
+    pq_conv_fused.pq_conv_fused(
+        t(gen.standard_normal((b, h, w, cin)), torch.bfloat16),
+        random_params((cout, kh, kh, s), s, k, d), stride=1, pad=pad)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launches()
+    if counts != {name: (1 if name.endswith("_general") else 0)
+                  for name in counts}:
+        raise AssertionError(f"general entry points: launches {counts}")
+    return rows, counts
+
 
 
 def tensor_bytes(params) -> int:
@@ -719,6 +899,10 @@ def phase_resnet(dev, gpu_name):
 
 
 def main() -> int:
+    only_fused = sys.argv[1:] == ["--only-fused"]
+    if sys.argv[1:] and not only_fused:
+        print("usage: chip_smoke.py [--only-fused]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -745,9 +929,7 @@ def main() -> int:
     # phase 2: build
     path, build_s, build_log = _build.build()
     log(f"build {os.path.basename(path)} seconds={build_s:.2f}")
-    for line in build_log.splitlines():
-        if "Used" in line or "spill" in line or "error" in line:
-            log("  ptxas: " + line.strip())
+    log_ptxas(build_log)
 
     spec = zoo.alexnet()
     params = synth.random_pq_params(spec, seed=0)
@@ -755,11 +937,15 @@ def main() -> int:
     rparams = synth.random_resnet_pq_params(resnet.resnet50(), seed=0)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
 
-    # phases 3-4: kernels vs plain versions, then timed; lrn_fused's own
-    # entry point
-    rows = phase_kernels(geo, spec, dev, flush, peaks)
-    new_rows, lrn_counts = phase_slice2_kernels(spec, geo, rparams, dev,
-                                                flush, peaks)
+    # phases 3-4: kernels vs plain versions, then timed; lrn_fused's and
+    # the general kernels' own entry points
+    rows, general_counts = phase_fused_kernels(spec, geo, rparams, dev,
+                                               flush, peaks)
+    if only_fused:
+        log(json.dumps({"partial": "fused kernels only", "rows": rows}))
+        return 0
+    rows |= phase_kernels(geo, spec, dev, flush, peaks)
+    new_rows, lrn_counts = phase_other_kernels(spec, geo, dev, flush, peaks)
     rows |= new_rows
     del flush
 
@@ -767,6 +953,7 @@ def main() -> int:
     counts = phase_end_to_end(spec, params, dev, gpu_name)
     counts["resnet50 memory"] = phase_resnet(dev, gpu_name)
     counts["lrn_fused entry point"] = lrn_counts
+    counts["general entry points"] = general_counts
     owners = {  # the paths that own each kernel
         "pq_decode": ("alexnet memory", "resnet50 memory"),
         "pq_lut_gather": ("alexnet memory",),
@@ -774,6 +961,8 @@ def main() -> int:
         "lrn_fused": ("lrn_fused entry point",),
         "pq_conv_fused": ("resnet50 memory",),
         "pq_fc": ("alexnet pallas",),
+        "pq_fc_fused_general": ("general entry points",),
+        "pq_conv_fused_general": ("general entry points",),
     }
     launches = {}
     for name, paths in owners.items():
@@ -796,6 +985,12 @@ def main() -> int:
                           "qcnn_tpu/ops/pallas/pq_conv_fused.py:93"),
         "pq_fc": ("qcnn_tpu_torch/csrc/pq_fc.cu",
                   "qcnn_tpu/ops/pallas/pq_fc.py:61"),
+        "pq_fc_fused_general": (
+            "qcnn_tpu_torch/csrc/pq_fc_fused_general.cu",
+            "qcnn_tpu/ops/pallas/pq_fc_fused.py:125"),
+        "pq_conv_fused_general": (
+            "qcnn_tpu_torch/csrc/pq_conv_fused_general.cu",
+            "qcnn_tpu/ops/pallas/pq_conv_fused.py:93"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -17,6 +17,10 @@ KERNELS = {
     "lrn_fused": lrn_fused.KERNEL,
     "pq_conv_fused": pq_conv_fused.KERNEL,
     "pq_fc": pq_fc.KERNEL,
+    # the general paths of the two decode-GEMMs, for the shapes their wgmma
+    # kernels do not take
+    "pq_fc_fused_general": pq_fc_fused.GENERAL,
+    "pq_conv_fused_general": pq_conv_fused.GENERAL,
 }
 
 

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources in ``qcnn_tpu_torch/csrc/*.cu`` each export a plain ``extern "C"``
-launcher that returns ``cudaGetLastError()``. They are compiled for Hopper
-(``sm_90a``) with ``nvcc``, one process per source started together, and
-linked into one shared library under ``qcnn_tpu_torch/_build/`` whose name
-carries a hash of the sources and flags: a changed source builds anew, an
-unchanged one is loaded as it is. The library is loaded with ``ctypes``
+The sources in ``qcnn_tpu_torch/csrc/*.cu`` each export plain ``extern "C"``
+launchers that return ``cudaGetLastError()``; ``csrc/*.cuh`` hold the device
+code they share. They are compiled for Hopper (``sm_90a``) with ``nvcc``,
+one process per ``.cu`` started together, and linked into one shared library
+under ``qcnn_tpu_torch/_build/`` whose name carries a hash of the sources,
+headers and flags: a changed source or header builds anew, an unchanged
+tree is loaded as it is. The library is loaded with ``ctypes``
 (no PyTorch headers are compiled, so a build takes seconds).
 
 Nothing is built when a module is imported: the first launch builds.
@@ -47,9 +48,13 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libqcnn_kernels_{h.hexdigest()[:16]}.so")
@@ -71,7 +76,7 @@ def build() -> tuple[str, float, str]:
         procs = []
         for src in _sources():
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

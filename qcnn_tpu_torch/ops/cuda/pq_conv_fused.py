@@ -7,9 +7,16 @@ square kh = kw > 1 convolution
     out = conv(bf16(x), W̃) + bias,   W̃[o, ti, tj, s*D + d] = bf16(C[s, A[o, ti, tj, s], d])
 
 with float32 accumulation and a float32 output; channels past Cin (the
-codebook overhang) meet zeros. The kernel (``csrc/pq_conv_fused.cu``) reads
-NHWC x directly for each tap and never writes the decoded weight to device
-memory.
+codebook overhang) meet zeros. The kernels read NHWC x directly for each
+tap and never write the decoded weight to device memory.
+
+Which kernel runs is a pure function of the geometry (``plan``): the
+``wgmma`` kernel of ``csrc/pq_conv_fused.cu`` where it takes the geometry,
+else the general one of ``csrc/pq_conv_fused_general.cu``; each has its own
+count of launches. Where the wgmma kernel splits the (chunk, tap) range
+across blocks, each split's float32 partial sums go to a workspace and are
+added in split order, so two launches give the same bits; the sum differs
+from the plain version's only in the order of float32 additions.
 
 The geometry gates (``supports``, ``fits_vmem`` and the sizes behind them)
 are copies of the JAX package's. They are TPU limits, kept so that both
@@ -26,16 +33,23 @@ import torch
 import torch.nn.functional as F
 
 from qcnn_tpu_torch.ops import lut
+from qcnn_tpu_torch.ops.cuda import _plan
 from qcnn_tpu_torch.ops.cuda._build import INT, PTR, Kernel, check_cuda
 
 _LANES = 128
 _VMEM_BUDGET = 6 * 1024 * 1024  # per-block bytes of the TPU kernel
 
-KERNEL = Kernel(
-    "pq_conv_fused_launch",
+KERNEL = Kernel(  # x, cb, ids, bias, out, workspace, B, H, W, Cin, S, K, D,
+    "pq_conv_fused_launch",  # Cout, kh, pad, tile rows, splits, stream
+    [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT,
+     INT, INT, INT, INT, PTR],
+)
+GENERAL = Kernel(
+    "pq_conv_fused_general_launch",
     [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, INT,
      INT, PTR],
 )
+plan = _plan.plan_conv
 
 
 def ceil_to(n: int, m: int) -> int:
@@ -105,7 +119,7 @@ def pq_conv_fused(x: torch.Tensor, params: dict, *, stride: int, pad: int,
         "bias" (Cout,)}.
       stride/groups: must satisfy ``supports``.
       block_b: the TPU kernel's batch tile; accepted for the JAX entry's
-        signature and unused (a block here owns 128 output pixels).
+        signature and unused (``plan`` tiles the output pixels).
     Returns:
       (B, Ho, Wo, Cout) float32.
     """
@@ -153,7 +167,19 @@ def pq_conv_fused(x: torch.Tensor, params: dict, *, stride: int, pad: int,
     ho, wo = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
     out = torch.empty((b, ho, wo, cout), dtype=torch.float32,
                       device=x.device)
+    k, d = cb.shape[1], cb.shape[2]
+    pl = plan(b, h, w, cin, cout, kh, pad, s, k, d)
+    if pl.variant == "general":
+        GENERAL.launch(xb.data_ptr(), cbb.data_ptr(), a.data_ptr(),
+                       bias.data_ptr(), out.data_ptr(), b, h, w, cin, s, k, d,
+                       cout, kh, pad)
+        return out
+    # the kernel copies 16 bytes at a time
+    xb, a = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xb, a))
+    ws = torch.empty(pl.workspace_bytes // 4, dtype=torch.float32,
+                     device=x.device) if pl.splits > 1 else None
     KERNEL.launch(xb.data_ptr(), cbb.data_ptr(), a.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), b, h, w, cin, s,
-                  cb.shape[1], cb.shape[2], cout, kh, pad)
+                  bias.data_ptr(), out.data_ptr(),
+                  ws.data_ptr() if ws is not None else None, b, h, w, cin, s,
+                  k, d, cout, kh, pad, pl.tile_rows, pl.splits)
     return out

@@ -11,8 +11,14 @@ two decode formulations ("gather", strategy ``fgather``; "select", strategy
 ``fused``) compute the same function; one kernel (``csrc/pq_fc_fused.cu``)
 serves both, and the name is still validated.
 
-On a CPU tensor the plain version runs; on a CUDA tensor the kernel
-launches or the call raises.
+On a CPU tensor the plain version runs; on a CUDA tensor a kernel launches
+or the call raises. Which kernel is a pure function of the shape
+(``plan``): the ``wgmma`` kernel of ``csrc/pq_fc_fused.cu`` where it takes
+the shape, else the general one of ``csrc/pq_fc_fused_general.cu``; each has
+its own count of launches. Where the wgmma kernel splits the contraction
+across blocks, each split's float32 partial sums go to a workspace and are
+added in split order, so two launches give the same bits; the sum differs
+from the plain version's only in the order of float32 additions.
 """
 
 from __future__ import annotations
@@ -20,15 +26,22 @@ from __future__ import annotations
 import torch
 
 from qcnn_tpu_torch.ops import lut
+from qcnn_tpu_torch.ops.cuda import _plan
 from qcnn_tpu_torch.ops.cuda._build import INT, PTR, Kernel, check_cuda
 
 MAX_CODEWORDS = 128  # uint8 ids of the JAX kernel (pq_fc_fused.py:295-299)
 DECODES = ("select", "gather")
 
-KERNEL = Kernel(
-    "pq_fc_fused_launch",
+KERNEL = Kernel(  # x, cb, ids, bias, out, workspace, B, Cin, S, K, D, Cout,
+    "pq_fc_fused_launch",  # tile rows, splits, stream
+    [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT,
+     PTR],
+)
+GENERAL = Kernel(
+    "pq_fc_fused_general_launch",
     [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR],
 )
+plan = _plan.plan_fc
 
 
 def fused_plain(x: torch.Tensor, codebooks: torch.Tensor,
@@ -85,6 +98,18 @@ def pq_fc_fused(x: torch.Tensor, params: dict, *,
     check_cuda("pq_fc_fused", x=xb, codebooks=cb, assignments=assignments,
                bias=bias)
     out = torch.empty((b, cout), dtype=torch.float32, device=x.device)
-    KERNEL.launch(xb.data_ptr(), cb.data_ptr(), assignments.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), b, cin, s, k, d, cout)
+    pl = plan(b, cin, cout, s, k, d)
+    if pl.variant == "general":
+        GENERAL.launch(xb.data_ptr(), cb.data_ptr(), assignments.data_ptr(),
+                       bias.data_ptr(), out.data_ptr(), b, cin, s, k, d, cout)
+        return out
+    # the kernel copies 16 bytes at a time
+    xb, cb, ids = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (xb, cb, assignments))
+    ws = torch.empty(pl.workspace_bytes // 4, dtype=torch.float32,
+                     device=x.device) if pl.splits > 1 else None
+    KERNEL.launch(xb.data_ptr(), cb.data_ptr(), ids.data_ptr(),
+                  bias.data_ptr(), out.data_ptr(),
+                  ws.data_ptr() if ws is not None else None, b, cin, s, k, d,
+                  cout, pl.tile_rows, pl.splits)
     return out
