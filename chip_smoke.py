@@ -1,8 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch + CUDA port (qcnn_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py               # everything, as below
-    python3 chip_smoke.py --only-fused  # phases 1-2 and the two decode-GEMMs
+    python3 chip_smoke.py                # everything, as below
+    python3 chip_smoke.py --only-fused   # phases 1-2 and the two decode-GEMMs
+    python3 chip_smoke.py --only-gather  # phases 1-2 and the two gathers
+    python3 chip_smoke.py --gather-times [--root CHECKOUT]
+        # phases 1-2, then only the times of pq_fc and pq_decode, of this
+        # checkout's package or another's (say the parent commit's, unpacked
+        # beside it): how two versions are compared inside one call
 
 Phases, each fatal on failure (any exception exits non-zero):
 
@@ -16,21 +21,30 @@ Phases, each fatal on failure (any exception exits non-zero):
    all of which must plan the wgmma kernels; each split contraction is
    launched twice and must give the same bits; odd shapes the wgmma
    kernels take and ragged ones that go to the general kernels.
-   pq_decode bit-exact (conv1-5, fc6-8), pq_lut_gather at B=1 (fc6-8),
-   pq_fc at AlexNet fc6-8 (B=256 and B=3), lrn_fused at AlexNet's two
-   LRN shapes (B=256, bf16, all three window names) and small f32 ones.
+   pq_fc at AlexNet fc6-8 (B=256, 64, 3 and 1) and on ragged shapes (S not
+   a multiple of 16, K=256, K not a multiple of 4), each launched twice
+   with equal bits. pq_decode bit-exact in bf16 and f32 under its plan and
+   under the general plan (AlexNet conv1-5 and fc6-8, every PQ weight of
+   ResNet-50), and the grouped launch bit-equal to per-item launches
+   (AlexNet's five convs, block 0 of each ResNet-50 stage, 20 items).
+   pq_lut_gather at B=1 (fc6-8), lrn_fused at AlexNet's two LRN shapes
+   (B=256, bf16, all three window names) and small f32 ones.
 4. timing (CUDA events, L2 flushed before each launch, every repetition
    enqueued behind a device spin so the host's pace is not in the number)
    of each kernel, its plain version and one PyTorch library call computing
    the same function, beside the least time the card could take (its
    bound); for the two decode-GEMMs also the general kernel on the same
-   inputs. Then lrn_fused's own entry point, counted (no forward runs it,
+   inputs, for pq_fc also the shared-memory floor (4 bytes an add), for
+   the grouped pq_decode also the per-item launches. Every time line of a
+   planned kernel prints the plan. Then lrn_fused's own entry point,
+   counted (no forward runs it,
    as in the JAX package), and the general kernels through the public
    entry points on ragged shapes, counted.
 5. end to end: full-width AlexNet-PQ, synthetic params (seed 0), bf16,
    strategy 'auto' (decode at load) and 'memory' (in-step kernels) at
-   B=256 and B=1; the launch counts show that memory mode ran the kernels,
-   and memory mode agrees with auto. A few steps of each run go through
+   B=256 and B=1; the launch counts show that memory mode ran the kernels
+   (pq_decode once a forward: conv1-5 in one launch), and memory mode
+   agrees with auto. A few steps of each run go through
    torch.profiler: device-busy time a step and the kernels that take it.
 6. AlexNet's explicit FC arm fc_impl='pallas' (convs 'auto') at B=256 and
    B=1: pq_fc three times a forward, agreeing with auto.
@@ -38,9 +52,10 @@ Phases, each fatal on failure (any exception exits non-zero):
    (seed 0), through models.common.build_family_forward: decode at load and
    memory mode at B=64 (the family's max_batch) and B=1, each profiled.
    Memory mode launches pq_conv_fused 7 times a forward (conv2 of stage 2
-   blocks 1-5 and stage 3 blocks 1-2) and pq_decode 46 times (the other 45
-   PQ convs and the fc head); decode at load launches no kernel. No path
-   launches a general kernel.
+   blocks 1-5 and stage 3 blocks 1-2) and pq_decode 17 times (one launch
+   at the head of each of the 16 blocks for its other PQ convs, and the fc
+   head); decode at load launches no kernel. No path launches a general
+   kernel.
 
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
@@ -61,12 +76,13 @@ Limits (the script fails past them):
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
-neither; with --only-fused it stops after the decode-GEMMs and prints
-neither.
+neither; with --only-fused, --only-gather or --gather-times it stops
+early and prints neither.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -84,6 +100,13 @@ PEAKS = {
 }
 ALEXNET_CONVS = ("conv1", "conv2", "conv3", "conv4", "conv5")
 ALEXNET_FCS = ("fc6", "fc7", "fc8")
+# peak_alloc_bytes of the memory-mode runs when every conv decoded for
+# itself (this script's run of the version before the grouped decode, on an
+# H100 80GB HBM3): a group's weights now live until its block or step ends
+PEAK_PER_CONV_DECODE = {
+    "alexnet memory B=256": 2753165824, "alexnet memory B=1": 223171072,
+    "resnet50 memory B=64": 521740288, "resnet50 memory B=1": 97525760,
+}
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
 SPIN_CYCLES = 18_000_000  # about 10 ms of device clock
 
@@ -218,49 +241,6 @@ def phase_kernels(geo, spec, dev, flush, peaks):
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
-    # --- pq_decode: in-step conv decodes (the path) and fc rows, bit-exact
-    dec = new_row()
-    for name in ALEXNET_CONVS + ALEXNET_FCS:
-        i, layer, p = geo[name]
-        _, h, w, c = shapes[i]
-        a = p["assignments"]
-        if name in ALEXNET_CONVS:
-            cout, kh, kw, s = a.shape
-            a2 = a.reshape(cout * kh * kw, s)
-            row_len = c // layer.groups
-        else:
-            a2 = a
-            row_len = h * w * c
-        for dtype in (torch.bfloat16, torch.float32):
-            cb = t(p["codebooks"], dtype)
-            ids = t(a2)
-            got = pq_decode.decode_rows(cb, ids, row_len)
-            want = lut_ops.decode_rows(cb, ids, row_len)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"pq_decode {name} {dtype}: not "
-                                     "bit-exact against the plain gather")
-        log(f"check pq_decode {name} N={a2.shape[0]} S={a2.shape[1]} "
-            f"C={row_len} bf16+f32 bit-exact max_abs_err=0.0")
-        if name not in ALEXNET_CONVS:
-            continue
-        cb = t(p["codebooks"], torch.bfloat16)
-        ids = t(a2)
-        s, k, d = cb.shape
-        srange = torch.arange(s, device=dev)[None, :]
-        ids_long = ids.long()  # an index tensor, made outside the timing
-        ms = time_ms(lambda: pq_decode.decode_rows(cb, ids, row_len), flush)
-        plain = time_ms(lambda: lut_ops.decode_rows(cb, ids, row_len), flush)
-        lib = time_ms(lambda: cb[srange, ids_long], flush)
-        n = ids.shape[0]
-        nbytes = n * s + cb.numel() * 2 + n * row_len * 2
-        b_ms, _ = bound(nbytes, 0, peaks["bf16"], peaks)
-        log(f"time pq_decode {name} kernel_ms={ms:.5f} plain_ms={plain:.5f} "
-            f"library_ms={lib:.5f} bound_ms={b_ms:.5f} (bytes {nbytes})")
-        add_timing(dec, 1, ms, plain, lib, b_ms, nbytes, 0, peaks["bf16"],
-                   peaks)
-    rows["pq_decode"] = close_row(dec)
-
     # --- pq_lut_gather at B=1 (memory mode's fc route at B <= 2)
     lg = new_row()
     for name in ALEXNET_FCS:
@@ -335,22 +315,292 @@ def phase_kernels(geo, spec, dev, flush, peaks):
     return rows
 
 
+# pq_fc off AlexNet's shapes: (B, S, K, Cout). S not a multiple of 16 (ids
+# staged with plain loads), K = 256 (a 4-sub-space chunk), K not a multiple
+# of 4 (the LUT staged 4 bytes at a time), more rows than a batch tile
+GATHER_RAGGED = ((5, 33, 256, 70), (3, 15, 32, 250), (9, 7, 3, 5),
+                 (70, 40, 20, 300))
+# shared memory of the card: 132 SMs x 128 bytes a clock at about 1.75 GHz
+SMEM_BYTES_PER_S = 132 * 128 * 1.75e9
+
+
+def resnet50_decode_items(rparams):
+    """{name: (codebooks, assignments (N, S), row_len)} (NumPy) of every PQ
+    conv of ResNet-50 and its fc head, in forward order."""
+    from qcnn_tpu_torch.models import resnet
+
+    items = {}
+    for key, _, convs in resnet.block_layout(resnet.resnet50()):
+        for name, _, cin, _ in convs:
+            p = rparams[key][name]
+            a = p["assignments"]
+            items[f"{key}.{name}"] = (p["codebooks"],
+                                      a.reshape(-1, a.shape[3]), cin)
+    fc = rparams["fc"]
+    items["fc"] = (fc["codebooks"], fc["assignments"],
+                   resnet.resnet50().stage_channels[-1])
+    return items
+
+
+def gather_fc_inputs(geo, spec, name, b, gen, dev):
+    """AlexNet fc `name` at batch b: (LUT (b, S, K) f32, ids, bias) on the
+    card, the LUT built from random bf16 activations."""
+    from qcnn_tpu_torch.ops import lut as lut_ops
+
+    i, _, p = geo[name]
+    _, h, w, c = spec.feature_shapes(batch=1)[i]
+    cb = torch.from_numpy(p["codebooks"]).to(dev, torch.bfloat16)
+    x = torch.from_numpy(gen.standard_normal((b, h * w * c))).to(
+        dev, torch.bfloat16)
+    return (lut_ops.build_lut(x, cb).contiguous(),
+            torch.from_numpy(p["assignments"]).to(dev),
+            torch.from_numpy(p["bias"]).to(dev, torch.float32))
+
+
+def alexnet_decode_items(geo, spec, dev, dtype):
+    """AlexNet conv1-5 as pq_decode items on the card."""
+    shapes = spec.feature_shapes(batch=1)
+    items = []
+    for name in ALEXNET_CONVS:
+        i, layer, p = geo[name]
+        a = p["assignments"]
+        items.append((torch.from_numpy(p["codebooks"]).to(dev, dtype),
+                      torch.from_numpy(a.reshape(-1, a.shape[3])).to(dev),
+                      shapes[i][3] // layer.groups))
+    return items
+
+
+def phase_gather_times(geo, spec, dev, flush):
+    """The times of pq_fc (fc6-8 at B = 256, 64, 3, 1) and of pq_decode
+    (conv1-5, one call each), through the entry points that every version
+    of the port has (`gather_accumulate`, `decode_rows`): the table that
+    compares two checkouts of the package inside one call."""
+    from qcnn_tpu_torch.ops.cuda import pq_decode, pq_fc
+
+    gen = np.random.default_rng(11)
+    for b in (256, 64, 3, 1):
+        for name in ALEXNET_FCS:
+            lut, ids, bias = gather_fc_inputs(geo, spec, name, b, gen, dev)
+            ms = time_ms(lambda: pq_fc.gather_accumulate(lut, ids, bias),
+                         flush)
+            log(f"gather-times pq_fc {name} B={b} kernel_ms={ms:.5f}")
+    total = 0.0
+    for name, (cb, ids, row_len) in zip(
+            ALEXNET_CONVS, alexnet_decode_items(geo, spec, dev,
+                                                torch.bfloat16)):
+        ms = time_ms(lambda: pq_decode.decode_rows(cb, ids, row_len), flush)
+        total += ms
+        log(f"gather-times pq_decode {name} kernel_ms={ms:.5f}")
+    log(f"gather-times pq_decode conv1-5 one call each kernel_ms={total:.5f}")
+
+
+def phase_gather_kernels(spec, geo, rparams, dev, flush, peaks):
+    """Phases 3 and 4 for the two gathers.
+
+    pq_fc at AlexNet fc6-8, B = 256 (summed into the kernel's row), 64, 3
+    and 1, and on ragged shapes, against `lut_gather_plain` at 1e-5 of the
+    largest |output|; every split plan launched twice with equal bits; each
+    timed beside its plain version, `torch.gather(LUT, 2, idx).sum`, the
+    data-sheet bound and the shared-memory floor (4 bytes an add).
+
+    pq_decode bit-exact in bf16 and f32, under its plan and under the
+    general plan, at AlexNet's conv1-5 and fc6-8 and every PQ weight of
+    ResNet-50; the grouped launch on AlexNet's five convs (the kernel's
+    row: one launch a forward) and on block 0 of each ResNet-50 stage,
+    bit-equal to per-item `decode_rows` and timed against those launches
+    and against `C[arange(S), A]`."""
+    from qcnn_tpu_torch.ops import lut as lut_ops
+    from qcnn_tpu_torch.ops.cuda import pq_decode, pq_fc
+
+    gen = np.random.default_rng(11)
+    shapes = spec.feature_shapes(batch=1)
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    # --- pq_fc
+    fc = new_row()
+
+    def fc_case(label, lut, ids, bias, timed, reps=20):
+        b, s, k = lut.shape
+        cout = ids.shape[0]
+        pl = pq_fc.plan(b, s, k, cout)
+        if pl.smem_bytes > 232448:
+            raise AssertionError(f"pq_fc {label}: plan {pl}")
+        got = pq_fc.gather_accumulate(lut, ids, bias)
+        want = pq_fc.lut_gather_plain(lut, ids, bias)
+        err = (got - want).abs().max().item()
+        scale = max(1e-6, want.abs().max().item())
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"pq_fc {label}: max_abs_err {err} > 1e-5 "
+                                 f"x {scale}")
+        fc["max_abs_err"] = max(fc["max_abs_err"], err)
+        again = pq_fc.gather_accumulate(lut, ids, bias)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"pq_fc {label}: two launches of the "
+                                 f"{pl.splits}-way split differ")
+        log(f"check pq_fc {label} max_abs_err={err:.3e} (rtol 1e-5 of "
+            f"{scale:.3e}) splits={pl.splits} two launches bit-identical")
+        if not timed:
+            return None
+        # a stride-0 view: gather reads it without a (B, S, Cout) copy
+        idx = ids.long().t().expand(b, s, cout)
+        ms = time_ms(lambda: pq_fc.gather_accumulate(lut, ids, bias), flush,
+                     reps=reps)
+        plain = time_ms(lambda: pq_fc.lut_gather_plain(lut, ids, bias),
+                        flush, reps=5)
+        lib = time_ms(lambda: torch.gather(lut, 2, idx).sum(1) + bias, flush,
+                      reps=5)
+        nbytes = b * s * k * 4 + cout * s + cout * 4 + b * cout * 4
+        ops = b * cout * s
+        b_ms, by = bound(nbytes, ops, peaks["f32"], peaks)
+        floor = ops * 4 / SMEM_BYTES_PER_S * 1e3
+        log(f"time pq_fc {label} rows={pl.rows} outputs={pl.outputs} "
+            f"chunk={pl.chunk} stages={pl.stages} splits={pl.splits} "
+            f"grid={pl.grid} smem={pl.smem_bytes} kernel_ms={ms:.5f} "
+            f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
+            f"bound_by={by} smem_floor_ms={floor:.5f} (bytes {nbytes}, "
+            f"adds {ops})")
+        if not ms < lib:
+            log(f"note pq_fc {label}: the kernel is not under the library "
+                "call's time")
+        return ms, plain, lib, b_ms, nbytes, ops
+
+    for b in (256, 64, 3, 1):
+        for name in ALEXNET_FCS:
+            times = fc_case(f"{name} B={b}",
+                            *gather_fc_inputs(geo, spec, name, b, gen, dev),
+                            timed=True)
+            if b == 256:
+                add_timing(fc, 1, *times, peaks["f32"], peaks)
+        if b == 256:  # the clock the card holds right after that load
+            log("nvidia-smi after pq_fc B=256: clocks.sm,power.draw = "
+                + subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, check=True).stdout.strip())
+    for b, s, k, cout in GATHER_RAGGED:
+        fc_case(f"ragged B={b} S={s} K={k} Cout={cout}",
+                t(gen.standard_normal((b, s, k)), torch.float32),
+                t(gen.integers(0, k, (cout, s), dtype=np.uint8)),
+                t(gen.standard_normal(cout), torch.float32), timed=False)
+
+    # --- pq_decode
+    def exact(label, item_np):
+        """Bit-exact under the item's plan and under the general plan, in
+        both dtypes."""
+        cb_np, ids_np, row_len = item_np
+        ids = t(ids_np)
+        variant = None
+        for dtype in (torch.bfloat16, torch.float32):
+            cb = t(cb_np, dtype)
+            want = lut_ops.decode_rows(cb, ids, row_len)
+            pl = pq_decode.plan(ids.shape[0], *cb.shape, row_len,
+                                cb.element_size())
+            general = pq_decode.plan(ids.shape[0], *cb.shape, row_len,
+                                     cb.element_size(), vector=False)
+            variant = variant or pl.variant
+            for which in (pl, general):
+                (got,) = pq_decode.launch_items([(cb, ids, row_len)],
+                                                [which])
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"pq_decode {label} {dtype} {which.variant}: not "
+                        "bit-exact against the plain gather")
+        log(f"check pq_decode {label} N={ids.shape[0]} S={ids.shape[1]} "
+            f"D={cb_np.shape[2]} C={row_len} plan(bf16)={variant} "
+            "bf16+f32, planned and general kernels bit-exact "
+            "max_abs_err=0.0")
+
+    for name in ALEXNET_CONVS + ALEXNET_FCS:
+        i, layer, p = geo[name]
+        _, h, w, c = shapes[i]
+        a = p["assignments"]
+        if name in ALEXNET_CONVS:
+            exact(name, (p["codebooks"], a.reshape(-1, a.shape[3]),
+                         c // layer.groups))
+        else:
+            exact(name, (p["codebooks"], a, h * w * c))
+    r50 = resnet50_decode_items(rparams)
+    for name, item in r50.items():
+        exact(f"resnet50 {name}", item)
+
+    def group_case(label, items):
+        """The grouped launch against per-item launches: equal bits, then
+        (grouped, per item, plain, library) ms and the bytes moved."""
+        many = pq_decode.decode_rows_many(items)
+        single = [pq_decode.decode_rows(*item) for item in items]
+        torch.cuda.synchronize()
+        for got, want, item in zip(many, single, items):
+            if not (torch.equal(got, want) and torch.equal(
+                    got, lut_ops.decode_rows(*item))):
+                raise AssertionError(f"pq_decode grouped {label}: an item "
+                                     "differs from its own decode_rows")
+        index = [(torch.arange(cb.shape[0], device=dev)[None, :], ids.long())
+                 for cb, ids, _ in items]  # made outside the timing
+        ms = time_ms(lambda: pq_decode.decode_rows_many(items), flush)
+        each = time_ms(lambda: [pq_decode.decode_rows(*item)
+                                for item in items], flush)
+        plain = time_ms(lambda: [lut_ops.decode_rows(*item)
+                                 for item in items], flush)
+        lib = time_ms(lambda: [cb[srange, ids_long] for (cb, _, _),
+                               (srange, ids_long) in zip(items, index)],
+                      flush)
+        nbytes = sum(ids.numel() + cb.numel() * cb.element_size()
+                     + ids.shape[0] * row_len * cb.element_size()
+                     for cb, ids, row_len in items)
+        b_ms, _ = bound(nbytes, 0, peaks["bf16"], peaks)
+        plans = [pq_decode.plan(ids.shape[0], *cb.shape, row_len,
+                                cb.element_size())
+                 for cb, ids, row_len in items]
+        log(f"time pq_decode grouped {label} items={len(items)} "
+            f"plans={[(pl.variant, pl.blocks) for pl in plans]} "
+            f"kernel_ms={ms:.5f} per_item_launches_ms={each:.5f} "
+            f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
+            f"(bytes {nbytes})")
+        return ms, plain, lib, b_ms, nbytes, 0
+
+    dec = new_row()
+    for dtype in (torch.float32, torch.bfloat16):
+        times = group_case(f"alexnet conv1-5 {dtype}",
+                           alexnet_decode_items(geo, spec, dev, dtype))
+    add_timing(dec, 1, *times, peaks["bf16"], peaks)  # bf16: the path's
+    for stage in range(4):
+        items = [(t(cb, torch.bfloat16), t(ids), row_len)
+                 for name, (cb, ids, row_len) in r50.items()
+                 if name.startswith(f"s{stage}b0.")]
+        group_case(f"resnet50 s{stage}b0 bf16", items)
+    # one call each, flushed: what a launch costs whatever its size
+    for name, (cb, ids, row_len) in zip(
+            ALEXNET_CONVS, alexnet_decode_items(geo, spec, dev,
+                                                torch.bfloat16)):
+        ms = time_ms(lambda: pq_decode.decode_rows(cb, ids, row_len), flush)
+        log(f"time pq_decode {name} alone kernel_ms={ms:.5f}")
+    # more items than one launch takes
+    items = alexnet_decode_items(geo, spec, dev, torch.bfloat16) * 4
+    for got, item in zip(pq_decode.decode_rows_many(items), items):
+        if not torch.equal(got, lut_ops.decode_rows(*item)):
+            raise AssertionError("pq_decode grouped: 20 items differ")
+    log("check pq_decode grouped 20 items (two launches) bit-exact")
+    return {"pq_fc": close_row(fc), "pq_decode": close_row(dec)}
+
+
 # ResNet-50's convs that memory mode runs through pq_conv_fused: conv2 of
 # these blocks' stage, (block key, spatial size, such convs a forward)
 RESNET50_FUSED = (("s2b1", 14, 5), ("s3b1", 7, 2))
 
 
 def phase_other_kernels(spec, geo, dev, flush, peaks):
-    """Phases 3 and 4 for pq_fc (AlexNet fc6-8, times at B=256) and
-    lrn_fused (AlexNet's two LRNs at B=256); then lrn_fused's own entry
-    point on those shapes, counted. Returns (rows, counts of the entry-point
-    run)."""
+    """Phases 3 and 4 for lrn_fused (AlexNet's two LRNs at B=256); then
+    lrn_fused's own entry point on those shapes, counted. Returns (rows,
+    counts of the entry-point run)."""
     import torch.nn.functional as F
 
     from qcnn_tpu_torch.core import LRNSpec
     from qcnn_tpu_torch.ops import cuda as cuda_ops
-    from qcnn_tpu_torch.ops import lut as lut_ops
-    from qcnn_tpu_torch.ops.cuda import lrn_fused, pq_fc
+    from qcnn_tpu_torch.ops.cuda import lrn_fused
 
     gen = np.random.default_rng(11)
     tgen = torch.Generator(device=dev).manual_seed(11)
@@ -358,51 +608,6 @@ def phase_other_kernels(spec, geo, dev, flush, peaks):
 
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-    # --- pq_fc at AlexNet fc6-8 (times at B=256) and B=3
-    shapes = spec.feature_shapes(batch=1)
-    fc = new_row()
-    for b in (256, 3):
-        for name in ALEXNET_FCS:
-            i, _, p = geo[name]
-            _, h, w, c = shapes[i]
-            cin = h * w * c
-            cb = t(p["codebooks"], torch.bfloat16)
-            ids = t(p["assignments"])
-            bias = t(p["bias"], torch.float32)
-            x = t(gen.standard_normal((b, cin)), torch.bfloat16)
-            lut = lut_ops.build_lut(x, cb).contiguous()
-            got = pq_fc.gather_accumulate(lut, ids, bias)
-            want = pq_fc.lut_gather_plain(lut, ids, bias)
-            err = (got - want).abs().max().item()
-            scale = max(1e-6, want.abs().max().item())
-            if not err <= 1e-5 * scale:
-                raise AssertionError(f"pq_fc {name} B={b}: max_abs_err "
-                                     f"{err} > 1e-5 x {scale}")
-            fc["max_abs_err"] = max(fc["max_abs_err"], err)
-            log(f"check pq_fc {name} B={b} max_abs_err={err:.3e} "
-                f"(rtol 1e-5 of {scale:.3e})")
-            s, k, _ = cb.shape
-            cout = ids.shape[0]
-            # a stride-0 view: gather reads it without a (B, S, Cout) copy
-            idx = ids.long().t().expand(b, s, cout)
-            ms = time_ms(lambda: pq_fc.gather_accumulate(lut, ids, bias),
-                         flush)
-            plain = time_ms(lambda: pq_fc.lut_gather_plain(lut, ids, bias),
-                            flush, reps=5)
-            lib = time_ms(lambda: torch.gather(lut, 2, idx).sum(1) + bias,
-                          flush, reps=5)
-            nbytes = b * s * k * 4 + cout * s + cout * 4 + b * cout * 4
-            ops = b * cout * s
-            b_ms, by = bound(nbytes, ops, peaks["f32"], peaks)
-            log(f"time pq_fc {name} B={b} kernel_ms={ms:.5f} "
-                f"plain_ms={plain:.5f} library_ms={lib:.5f} "
-                f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, "
-                f"adds {ops})")
-            if b == 256:
-                add_timing(fc, 1, ms, plain, lib, b_ms, nbytes, ops,
-                           peaks["f32"], peaks)
-    rows["pq_fc"] = close_row(fc)
 
     # --- lrn_fused at AlexNet's two LRN shapes, B=256, bf16
     lrns = [(spec.layers[i], spec.feature_shapes(batch=256)[i])
@@ -787,10 +992,13 @@ def drive(label: str, fwd, b: int, classes: int, steps: int, per_fwd: dict,
     if row_sum_err > 1e-3:
         raise AssertionError(f"{label}: rows sum to 1 +- {row_sum_err}")
     ms = float(np.median(loop_ms))
+    before = next((f" (per-conv decode: {v})"
+                   for k, v in PEAK_PER_CONV_DECODE.items()
+                   if label.startswith(k)), "")
     log(f"e2e {label} img/s={b / ms * 1e3:.1f} ms/step={ms:.4f} "
         f"(range {min(loop_ms):.4f}-{max(loop_ms):.4f} over {len(loop_ms)} "
         f"loops of {steps}) prepare_s={prep_s:.2f} "
-        f"resident_param_bytes={resident} peak_alloc_bytes={peak} "
+        f"resident_param_bytes={resident} peak_alloc_bytes={peak}{before} "
         f"launches={ {k: v // n_fwd for k, v in counts.items() if v} } "
         f"per forward card={gpu_name}")
     return out, counts
@@ -822,8 +1030,8 @@ def phase_end_to_end(spec, params, dev, gpu_name):
     expect = {  # launches per forward of each kernel, by strategy and batch
         ("auto", "auto", 256): {},
         ("auto", "auto", 1): {},
-        ("memory", "memory", 256): {"pq_decode": 5, "pq_fc_fused": 3},
-        ("memory", "memory", 1): {"pq_decode": 5, "pq_lut_gather": 3},
+        ("memory", "memory", 256): {"pq_decode": 1, "pq_fc_fused": 3},
+        ("memory", "memory", 1): {"pq_decode": 1, "pq_lut_gather": 3},
         ("auto", "pallas", 256): {"pq_fc": 3},
         ("auto", "pallas", 1): {"pq_fc": 3},
     }
@@ -872,7 +1080,7 @@ def phase_resnet(dev, gpu_name):
     gen = torch.Generator(device=dev).manual_seed(1)
     x_all = torch.randn((64, spec.in_size, spec.in_size, 3), generator=gen,
                         device=dev)
-    per_fwd = {"memory": {"pq_conv_fused": 7, "pq_decode": 46},
+    per_fwd = {"memory": {"pq_conv_fused": 7, "pq_decode": 17},
                "decode": {}}
     probs, counts = {}, {}
     for mode in ("decode", "memory"):
@@ -899,15 +1107,29 @@ def phase_resnet(dev, gpu_name):
 
 
 def main() -> int:
-    only_fused = sys.argv[1:] == ["--only-fused"]
-    if sys.argv[1:] and not only_fused:
-        print("usage: chip_smoke.py [--only-fused]", file=sys.stderr)
-        return 2
+    parser = argparse.ArgumentParser(
+        description="Chip smoke of the PyTorch + CUDA port on one card.")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--only-fused", action="store_true",
+                      help="stop after the build and the two decode-GEMMs")
+    only.add_argument("--only-gather", action="store_true",
+                      help="stop after the build and the two gathers "
+                           "(pq_fc, pq_decode)")
+    only.add_argument("--gather-times", action="store_true",
+                      help="only time pq_fc and pq_decode through the entry "
+                           "points every version of the port has")
+    parser.add_argument("--root", default=None,
+                        help="with --gather-times: the checkout whose "
+                             "qcnn_tpu_torch is timed (default: this one)")
+    args = parser.parse_args()
+    if args.root and not args.gather_times:
+        parser.error("--root goes with --gather-times")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(
+        args.root or os.path.dirname(os.path.abspath(__file__))))
     from qcnn_tpu_torch.models import resnet, synth, zoo
     from qcnn_tpu_torch.ops.cuda import _build
 
@@ -934,16 +1156,25 @@ def main() -> int:
     spec = zoo.alexnet()
     params = synth.random_pq_params(spec, seed=0)
     geo = alexnet_geometry(spec, params)
-    rparams = synth.random_resnet_pq_params(resnet.resnet50(), seed=0)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    if args.gather_times:
+        phase_gather_times(geo, spec, dev, flush)
+        return 0
+    rparams = synth.random_resnet_pq_params(resnet.resnet50(), seed=0)
+    if args.only_gather:
+        rows = phase_gather_kernels(spec, geo, rparams, dev, flush, peaks)
+        log(json.dumps({"partial": "gather kernels only", "rows": rows}))
+        return 0
 
     # phases 3-4: kernels vs plain versions, then timed; lrn_fused's and
     # the general kernels' own entry points
     rows, general_counts = phase_fused_kernels(spec, geo, rparams, dev,
                                                flush, peaks)
-    if only_fused:
+    if args.only_fused:
         log(json.dumps({"partial": "fused kernels only", "rows": rows}))
         return 0
+    rows |= phase_gather_kernels(spec, geo, rparams, dev, flush, peaks)
     rows |= phase_kernels(geo, spec, dev, flush, peaks)
     new_rows, lrn_counts = phase_other_kernels(spec, geo, dev, flush, peaks)
     rows |= new_rows

@@ -31,7 +31,7 @@ from qcnn_tpu_torch.core import (
     is_pq,
 )
 from qcnn_tpu_torch.models import common
-from qcnn_tpu_torch.ops.conv import conv_dense, pq_conv
+from qcnn_tpu_torch.ops.conv import conv_dense, instep_decodes, pq_conv
 from qcnn_tpu_torch.ops.fc import fc_dense, pq_fc
 from qcnn_tpu_torch.ops.misc import (
     caffe_max_pool,
@@ -171,11 +171,20 @@ def forward(
         if collect_act_amax:
             act_amax[i] = v.float().abs().amax()
 
+    # every PQ conv that decodes in the step, in one launch at its start
+    shapes = spec.feature_shapes(batch=1)
+    pq_convs = {
+        i: (_to_device(params[i], device), conv_impls[i],
+            shapes[i][3] // layer.groups)
+        for i, layer in enumerate(spec.layers[:upto])
+        if isinstance(layer, ConvSpec) and conv_impls[i] != "dense"}
+    decoded = instep_decodes(pq_convs)
+
     first_fc_done = False
     for i, (layer, p) in enumerate(zip(spec.layers, params)):
         if i == upto:
             return x
-        p = _to_device(p, device)
+        p = pq_convs[i][0] if i in pq_convs else _to_device(p, device)
         if isinstance(layer, ConvSpec):
             record_amax(i, x)
             if conv_impls[i] == "dense":
@@ -191,7 +200,7 @@ def forward(
                 x = pq_conv(
                     x, p, stride=layer.stride, pad=layer.pad,
                     groups=layer.groups, impl=conv_impls[i],
-                    out_dtype=compute_dtype,
+                    out_dtype=compute_dtype, decoded=decoded.get(i),
                 )
             x = x.to(compute_dtype)
         elif isinstance(layer, PoolSpec):

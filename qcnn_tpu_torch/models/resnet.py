@@ -132,11 +132,16 @@ def init_dense_params(spec: ResNetSpec, seed: int = 0) -> dict:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_conv(x, p, *, stride=1, pad=0, out_dtype=None):
+def _apply_conv(x, p, *, stride=1, pad=0, out_dtype=None, impl=None,
+                decoded=None):
+    """impl: the PQ strategy :func:`_block_routes` resolved for this conv
+    (None resolves models/common.py MEMORY_IMPL here); decoded: its weight
+    from the block's grouped decode."""
     if "codebooks" in p:
         # in-step PQ decode formulation: models/common.py MEMORY_IMPL
         return conv_ops.pq_conv(x, p, stride=stride, pad=pad,
-                                impl=common.MEMORY_IMPL, out_dtype=out_dtype)
+                                impl=impl or common.MEMORY_IMPL,
+                                out_dtype=out_dtype, decoded=decoded)
     if "kernel_q" in p:
         raise NotImplementedError(
             "int8 conv layers are not ported yet: ROADMAP.md A7")
@@ -154,22 +159,75 @@ def _apply_fc(x, p, out_dtype=None):
     return fc_ops.fc_dense(x, p["weight"], p["bias"], out_dtype=out_dtype)
 
 
-def _run_block(x, block, stride: int, bottleneck: bool, cast):
-    """One residual block (shared by forward and forward_segments)."""
-    od = getattr(cast, "dtype", None)
-    shortcut = x
-    if "proj" in block:
-        shortcut = cast(_apply_conv(x, block["proj"], stride=stride,
-                                    out_dtype=od))
+def _block_inputs(x, block, stride: int, bottleneck: bool, od) -> dict:
+    """{conv name: (input shape, input dtype, stride, pad)} of one residual
+    block, which follow from the block's input x (NHWC): a stride-s conv
+    gives ceil(h / s) rows (pad 1 for 3x3, 0 for 1x1), a conv emits
+    ``od`` (float32 when None) and its Cout is the next conv's Cin."""
+    b, h, w, _ = x.shape
+    inner = od if od is not None else torch.float32
+    down = (b, -(-h // stride), -(-w // stride))
+    first = (tuple(x.shape), x.dtype)
+
+    def after(name, hw):
+        return ((*hw, block[name]["bias"].shape[0]), inner)
+
     if bottleneck:
-        y = cast(relu(_apply_conv(x, block["conv1"], out_dtype=od)))
-        y = cast(relu(_apply_conv(y, block["conv2"], stride=stride, pad=1,
-                                  out_dtype=od)))
-        y = cast(_apply_conv(y, block["conv3"], out_dtype=od))
+        convs = {"conv1": (*first, 1, 0),
+                 "conv2": (*after("conv1", (b, h, w)), stride, 1),
+                 "conv3": (*after("conv2", down), 1, 0)}
     else:
-        y = cast(relu(_apply_conv(x, block["conv1"], stride=stride, pad=1,
-                                  out_dtype=od)))
-        y = cast(_apply_conv(y, block["conv2"], pad=1, out_dtype=od))
+        convs = {"conv1": (*first, stride, 1),
+                 "conv2": (*after("conv1", down), 1, 1)}
+    if "proj" in block:
+        convs["proj"] = (*first, stride, 0)
+    return convs
+
+
+def _block_routes(inputs: dict, block) -> dict:
+    """{conv name: (params, impl, Cin)} for the block's PQ convs: the
+    strategy that MEMORY_IMPL resolves to, decided once per conv from its
+    input (:func:`_block_inputs`)."""
+    routes = {}
+    for name, (shape, dtype, st, pad) in inputs.items():
+        p = block[name]
+        if "codebooks" not in p:
+            continue
+        impl = common.MEMORY_IMPL
+        if impl == "memory_fused":
+            impl = conv_ops.memory_fused_route(p, shape, dtype, stride=st,
+                                               pad=pad)
+        routes[name] = (p, impl, shape[3])
+    return routes
+
+
+def _run_block(x, block, stride: int, bottleneck: bool, cast):
+    """One residual block (shared by forward and forward_segments). Every
+    conv of the block that decodes its weight in the step does so in one
+    ``pq_decode`` launch at the head of the block; the weights live until
+    the block returns."""
+    od = getattr(cast, "dtype", None)
+    inputs = _block_inputs(x, block, stride, bottleneck, od)
+    routes = _block_routes(inputs, block)
+    decoded = conv_ops.instep_decodes(routes)
+
+    def conv(v, name):
+        shape, dtype, st, pad = inputs[name]
+        if tuple(v.shape) != shape or v.dtype != dtype:
+            raise RuntimeError(
+                f"{name}: input {tuple(v.shape)} {v.dtype}, but its route "
+                f"was decided for {shape} {dtype}")
+        _, impl, _ = routes.get(name, (None, None, None))
+        return _apply_conv(v, block[name], stride=st, pad=pad, out_dtype=od,
+                           impl=impl, decoded=decoded.get(name))
+
+    shortcut = cast(conv(x, "proj")) if "proj" in block else x
+    y = cast(relu(conv(x, "conv1")))
+    if bottleneck:
+        y = cast(relu(conv(y, "conv2")))
+        y = cast(conv(y, "conv3"))
+    else:
+        y = cast(conv(y, "conv2"))
     return relu(y + shortcut)
 
 

@@ -131,15 +131,21 @@ def conv_dense(
 def pq_conv_decode(
     x: torch.Tensor, params: dict, *, stride: int, pad: int, groups: int = 1,
     layout: str | None = None, out_dtype=None,
+    decoded: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """PQ conv via a kernel decode + dense conv. layout=None decodes with
     the plain gather (HWIO); a layout name ('hwio', 'ohwi', 'hwoi', 'iohw')
-    decodes with the ``pq_decode`` kernel and hands that logical layout on."""
+    decodes with the ``pq_decode`` kernel and hands that logical layout on.
+    decoded: this layer's (Cout, kh, kw, Cg) buffer from a grouped decode
+    (``pq_decode.decode_conv_kernels_many``), taken in place of a launch of
+    its own."""
     cg = x.shape[-1] // groups
     if layout is None:
         kernel = lut_ops.decode_conv_kernel(
             params["codebooks"], params["assignments"], cg)
         layout = "hwio"
+    elif decoded is not None:
+        kernel = pq_decode.conv_kernel_view(decoded, layout)
     else:
         kernel = pq_decode.decode_conv_kernel_gather(
             params["codebooks"], params["assignments"], cg, layout=layout)
@@ -179,8 +185,11 @@ def pq_conv(
     groups: int = 1,
     impl: str = "decode",
     out_dtype=None,
+    decoded: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """PQ conv by strategy name (see the module docstring)."""
+    """PQ conv by strategy name (see the module docstring). decoded: the
+    layer's weight from a grouped decode, for the in-step decode impls
+    (:func:`instep_decodes`)."""
     if impl in _NOT_PORTED:
         raise NotImplementedError(
             f"pq_conv impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}")
@@ -219,4 +228,21 @@ def pq_conv(
     return pq_conv_decode(
         x, params, stride=stride, pad=pad, groups=groups,
         layout=_INSTEP_LAYOUTS.get(impl), out_dtype=out_dtype,
+        decoded=decoded,
     )
+
+
+def instep_decodes(convs: dict) -> dict:
+    """Decode, in one ``pq_decode`` launch, every conv of a group that runs
+    an in-step decode impl.
+
+    convs: {key: (params, impl, channels per group)}; entries with another
+    impl are skipped. Returns {key: (Cout, kh, kw, Cg) buffer} to hand to
+    :func:`pq_conv` as ``decoded``. The weights of the group live until the
+    caller drops the dict."""
+    keys = [key for key, (_, impl, _) in convs.items()
+            if impl in _INSTEP_LAYOUTS]
+    buffers = pq_decode.decode_conv_kernels_many(
+        [(convs[key][0]["codebooks"], convs[key][0]["assignments"],
+          convs[key][2]) for key in keys])
+    return dict(zip(keys, buffers))

@@ -1,5 +1,6 @@
-"""Launch plans of the two decode-GEMM kernels, as pure functions of the
-shape.
+"""Launch plans of the kernels whose launch depends on the shape (the two
+decode-GEMMs, the ``pq_fc`` gather and ``pq_decode``), as pure functions of
+the shape.
 
 ``csrc/pq_tile.cuh`` holds the kernel that ``pq_fc_fused`` and
 ``pq_conv_fused`` share (``wgmma``, the weight decoded into registers). It
@@ -9,7 +10,11 @@ contraction is split across blocks and how large the partial-sum workspace
 is are decided here from the shape alone, never from a failure, so the CPU
 tests can check the decision and the C launchers only validate it.
 
-The constants mirror ``pq_tile.cuh``.
+The constants mirror ``pq_tile.cuh``, ``pq_fc.cu`` and ``pq_decode.cu``.
+
+:func:`plan_gather` plans ``pq_fc`` (rows and outputs a block, the chunk of
+sub-spaces a stage, the split of S) and :func:`plan_decode` plans one item
+of a ``pq_decode`` launch (the 16-byte vector kernel or the general one).
 """
 
 from __future__ import annotations
@@ -133,3 +138,90 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int, kh: int, pad: int,
     grid = (ceil_div(cout, 64), ceil_div(rows, 128), 1)
     return Plan("general", 128, 64, 1, kh * kh * ceil_div(cin, KC), grid,
                 2 * (128 + 64) * (KC + 8) * 2, 0)
+
+
+# ---- pq_fc: the batch-tiled LUT gather ------------------------------------
+
+GATHER_THREADS = 512       # threads a block; a thread owns 1 or 2 outputs
+GATHER_ROWS = (1, 2, 4, 8, 16)  # batch rows a block: the instantiations
+GATHER_MAX_STAGES = 4      # ring of staged chunks: what fits, 2 to 4
+GATHER_LUT_ROW = 1024      # floats between two rows of a staged LUT chunk
+GATHER_MAX_CHUNK = 32      # sub-spaces a stage, at most
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    rows: int              # batch rows per block
+    outputs: int           # outputs per block (GATHER_THREADS x 1 or 2)
+    chunk: int             # sub-spaces a stage
+    splits: int            # blocks that share one output tile's sum over S
+    chunks_per_split: int
+    stages: int            # chunks in flight: the ring's depth
+    grid: tuple[int, int, int]   # (output tiles, batch tiles, splits)
+    smem_bytes: int        # dynamic shared memory of a block
+    workspace_bytes: int   # float32 partial sums, 0 when splits == 1
+
+
+def gather_id_pitch(chunk: int) -> int:
+    """Bytes between two outputs' staged ids: whole 16-byte units, one more
+    than the chunk needs, and an odd number of them, so that the quarter
+    warps' 16-byte reads fall in distinct banks."""
+    units = ceil_div(chunk, 16) + 1
+    return 16 * (units + 1 - units % 2)
+
+
+def plan_gather(b: int, s: int, k: int, cout: int) -> GatherPlan:
+    """Plan of ``pq_fc`` for a LUT (b, s, k) and ids (cout, s), k <= 256."""
+    rows = next(r for r in GATHER_ROWS if r >= min(b, GATHER_ROWS[-1]))
+    outputs = GATHER_THREADS * (2 if cout > GATHER_THREADS else 1)
+    # a row's chunk (chunk * k floats) fits the staged row; whole 16-id
+    # groups where the row allows
+    chunk = max(1, min(GATHER_MAX_CHUNK, GATHER_LUT_ROW // k, s))
+    if chunk >= 16:
+        chunk -= chunk % 16
+    out_tiles, b_tiles = ceil_div(cout, outputs), ceil_div(b, rows)
+    n_chunks = ceil_div(s, chunk) if s else 0
+    splits, per_split = split_contraction(out_tiles * b_tiles,
+                                          max(1, n_chunks))
+    stage = rows * GATHER_LUT_ROW * 4 + outputs * gather_id_pitch(chunk)
+    stages = max(2, min(GATHER_MAX_STAGES, SMEM_LIMIT // stage, per_split))
+    return GatherPlan(rows, outputs, chunk, splits, per_split, stages,
+                      (out_tiles, b_tiles, splits), stages * stage,
+                      splits * b * cout * 4 if splits > 1 else 0)
+
+
+# ---- pq_decode: one item of a (grouped) launch ----------------------------
+
+DECODE_UNITS = 1024        # 16-byte vectors a block of the vector kernel
+DECODE_ELEMENTS = 256      # elements a block of the general kernel
+DECODE_MAX_ITEMS = 16      # items a launch
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    variant: str           # "vector" or "general"
+    units: int             # 16-byte vectors (vector) or elements (general)
+    blocks: int            # blocks of the launch that this item owns
+    ids_per_vector: int    # ids a thread reads for one vector; 0 for general
+
+
+def plan_decode(n: int, s: int, k: int, d: int, row_len: int,
+                elem_bytes: int, *, vector: bool = True) -> DecodePlan:
+    """Plan of one ``pq_decode`` item: ids (n, s), codebooks (s, k, d) of
+    ``elem_bytes``-byte elements, rows cut to ``row_len`` columns.
+
+    The vector kernel writes 16 bytes a thread. It takes rows that are
+    whole 16-byte vectors (so every row starts aligned and no vector cuts a
+    codeword short) with a codeword of a power of two of bytes (2, 4 or 8:
+    several to a vector; 16 or more: a vector is a piece of one), and sizes
+    it can index with 32 bits. ``vector=False`` plans the general
+    kernel (one element a thread), which takes every shape."""
+    cw, row_bytes = d * elem_bytes, row_len * elem_bytes
+    if (vector and row_bytes % 16 == 0 and cw >= 2 and cw & (cw - 1) == 0
+            and n * s < 2 ** 31 and s * k * cw < 2 ** 31
+            and n * row_bytes // 16 < 2 ** 31):
+        units = n * row_bytes // 16
+        return DecodePlan("vector", units, ceil_div(units, DECODE_UNITS),
+                          max(1, 16 // cw))
+    units = n * row_len
+    return DecodePlan("general", units, ceil_div(units, DECODE_ELEMENTS), 0)

@@ -288,23 +288,27 @@ def test_fused_impl_errors_match_jax(rng):
 
 def test_memory_forward_runs_the_fused_kernel_on_seven_convs(monkeypatch):
     """ResNet-50 in bf16 memory mode on the CPU: the entry points that
-    launch pq_conv_fused and pq_decode on the card are called 7 and 46
-    times a forward (chip_smoke.py holds the card's counts to these)."""
+    launch pq_conv_fused and pq_decode on the card are called 7 and 17
+    times a forward (chip_smoke.py holds the card's counts to these): the
+    46 weights on the decode route go in one grouped launch at the head of
+    each of the 16 blocks, and one for the fc head."""
     from qcnn_tpu_torch.models import common
 
-    calls = {"fused": 0, "decode": 0}
-    fused, decode = pq_conv_fused.pq_conv_fused, pq_decode.decode_rows
+    calls = {"fused": 0, "decode": 0, "decoded weights": 0}
+    fused, decode = pq_conv_fused.pq_conv_fused, pq_decode.decode_rows_many
 
     def count_fused(*a, **kw):
         calls["fused"] += 1
         return fused(*a, **kw)
 
-    def count_decode(*a, **kw):
+    def count_decode(items):
+        items = list(items)
         calls["decode"] += 1
-        return decode(*a, **kw)
+        calls["decoded weights"] += len(items)
+        return decode(items)
 
     monkeypatch.setattr(pq_conv_fused, "pq_conv_fused", count_fused)
-    monkeypatch.setattr(pq_decode, "decode_rows", count_decode)
+    monkeypatch.setattr(pq_decode, "decode_rows_many", count_decode)
     spec = tresnet.resnet50()
     params = synth.random_resnet_pq_params(spec, seed=0)
     prepared, fwd, _ = common.build_family_forward(
@@ -314,7 +318,7 @@ def test_memory_forward_runs_the_fused_kernel_on_seven_convs(monkeypatch):
         np.float32)
     out = fwd(prepared, x)
     assert out.shape == (1, 1000) and torch.isfinite(out).all()
-    assert calls == {"fused": 7, "decode": 46}
+    assert calls == {"fused": 7, "decode": 17, "decoded weights": 46}
     # the JAX package routes the same layers (spot check: the spec agrees)
     assert jresnet.resnet50().stage_channels == spec.stage_channels
 

@@ -209,6 +209,7 @@ def test_plain_versions_do_not_count_launches(rng):
     pq_fc_fused.pq_fc_fused(T(x), tp)
     pq_lut_gather.pq_fc_lut_gather(T(x), tp)
     pq_decode.decode_fc_weight_gather(tp["codebooks"], tp["assignments"], 32)
+    pq_decode.decode_rows_many([(tp["codebooks"], tp["assignments"], 32)] * 2)
     pq_fc.pq_fc_pallas(T(x), tp)
     lrn_fused.lrn_fused(T(x).reshape(3, 4, 8), size=5, alpha=1e-4, beta=0.75,
                         k=1.0)

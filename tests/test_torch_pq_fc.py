@@ -78,6 +78,26 @@ def test_gather_accumulate_is_the_lut_sum(rng):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def test_wrapper_follows_the_gather_plan(rng):
+    """The launch arguments are the plan's: rows, outputs, chunk, stages and
+    splits from the shape alone, and a workspace only for a split sum."""
+    from qcnn_tpu_torch.ops.cuda import _plan
+
+    assert pq_fc.plan is _plan.plan_gather
+    assert len(pq_fc.KERNEL.argtypes) == 15  # 5 pointers, 9 ints, the stream
+    small, large = pq_fc.plan(3, 4096, 16, 1000), pq_fc.plan(4096, 64, 32, 4096)
+    assert (small.rows, small.splits) == (4, 128)
+    assert small.workspace_bytes == 128 * 3 * 1000 * 4
+    assert (large.rows, large.splits, large.workspace_bytes) == (16, 1, 0)
+    # the plan's order of additions is the plain sum, to rounding
+    x, p = _fc(rng, 3, 64, 20, 16, 32, 4)
+    lut = lut_ops.build_lut(T(x), T(p["codebooks"]))
+    got = pq_fc.split_sum_plain(lut, T(p["assignments"]), T(p["bias"]),
+                                pq_fc.plan(3, 16, 32, 20))
+    want = pq_fc.gather_accumulate(lut, T(p["assignments"]), T(p["bias"]))
+    assert _rel_err(got.numpy(), want.numpy()) <= 1e-5
+
+
 def test_guards(rng):
     x, p = _fc(rng, 2, 32, 8, 8, 32, 4)
     tp = {k: T(v) for k, v in p.items()}
