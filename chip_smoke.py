@@ -4,10 +4,12 @@
     python3 chip_smoke.py                # everything, as below
     python3 chip_smoke.py --only-fused   # phases 1-2 and the two decode-GEMMs
     python3 chip_smoke.py --only-gather  # phases 1-2 and the two gathers
+    python3 chip_smoke.py --only-lut-lrn # phases 1-2, pq_lut_gather, lrn_fused
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
-        # phases 1-2, then only the times of pq_fc and pq_decode, of this
-        # checkout's package or another's (say the parent commit's, unpacked
-        # beside it): how two versions are compared inside one call
+        # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
+        # and lrn_fused, of this checkout's package or another's (say the
+        # parent commit's, unpacked beside it): how two versions are
+        # compared inside one call
 
 Phases, each fatal on failure (any exception exits non-zero):
 
@@ -27,19 +29,33 @@ Phases, each fatal on failure (any exception exits non-zero):
    under the general plan (AlexNet conv1-5 and fc6-8, every PQ weight of
    ResNet-50), and the grouped launch bit-equal to per-item launches
    (AlexNet's five convs, block 0 of each ResNet-50 stage, 20 items).
-   pq_lut_gather at B=1 (fc6-8), lrn_fused at AlexNet's two LRN shapes
-   (B=256, bf16, all three window names) and small f32 ones.
+   pq_lut_gather at fc6-8 for B = 1, 2 (the route's), 3 and 17 (batch
+   tiles of 4 and 8 rows), all of which must plan the staged kernel, each
+   launched twice with equal bits and held bit for bit to split_sum_plain
+   (the kernel's order of additions in PyTorch, which the CPU tests hold
+   against the JAX kernel); odd shapes the staged kernel takes (one split,
+   idle warps, K = 20, 64 splits), the same; ragged shapes must plan its
+   general kernel. lrn_fused at AlexNet's two LRN shapes (B=256, bf16, all
+   three window names, the register kernel), small f32 ones, window sizes
+   3, 5, 7 (register) and 9 (general), rows that are no whole 16-byte
+   vectors (general) and a base pointer off the 16-byte grid; AlexNet's
+   shapes and every case at beta 0.75, bf16 and f32, must be the bits of
+   lrn_window_plain (the window's order of additions in PyTorch).
 4. timing (CUDA events, L2 flushed before each launch, every repetition
    enqueued behind a device spin so the host's pace is not in the number)
    of each kernel, its plain version and one PyTorch library call computing
    the same function, beside the least time the card could take (its
    bound); for the two decode-GEMMs also the general kernel on the same
    inputs, for pq_fc also the shared-memory floor (4 bytes an add), for
-   the grouped pq_decode also the per-item launches. Every time line of a
-   planned kernel prints the plan. Then lrn_fused's own entry point,
-   counted (no forward runs it,
-   as in the JAX package), and the general kernels through the public
-   entry points on ragged shapes, counted.
+   the grouped pq_decode also the per-item launches, for pq_lut_gather
+   (B = 1 and 2) also pq_fc on the same inputs and the launch floor (an
+   empty kernel under the same timer); there the kernel must be under the
+   library call's time. Every time line of a planned kernel prints the
+   plan. The general kernels of pq_lut_gather and lrn_fused are timed on
+   ragged shapes into rows of their own. Then lrn_fused's own entry point,
+   counted (no forward runs it, as in the JAX package), and the four
+   general kernels through the public entry points on ragged shapes, each
+   counted under its own name.
 5. end to end: full-width AlexNet-PQ, synthetic params (seed 0), bf16,
    strategy 'auto' (decode at load) and 'memory' (in-step kernels) at
    B=256 and B=1; the launch counts show that memory mode ran the kernels
@@ -76,8 +92,8 @@ Limits (the script fails past them):
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
-neither; with --only-fused, --only-gather or --gather-times it stops
-early and prints neither.
+neither; with --only-fused, --only-gather, --only-lut-lrn or
+--gather-times it stops early and prints neither.
 """
 
 from __future__ import annotations
@@ -232,60 +248,129 @@ def alexnet_geometry(spec, params):
 def phase_kernels(geo, spec, dev, flush, peaks):
     """Phases 3 and 4: each kernel against its plain version, then timed."""
     from qcnn_tpu_torch.ops import lut as lut_ops
-    from qcnn_tpu_torch.ops.cuda import pq_decode, pq_fc_fused, pq_lut_gather
+    from qcnn_tpu_torch.ops.cuda import (
+        _build,
+        pq_decode,
+        pq_fc,
+        pq_fc_fused,
+        pq_lut_gather,
+    )
 
     gen = np.random.default_rng(7)
-    shapes = spec.feature_shapes(batch=1)
     rows = {}
 
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
-    # --- pq_lut_gather at B=1 (memory mode's fc route at B <= 2)
+    # --- pq_lut_gather at B = 1 and 2 (memory mode's fc route at B <= 2),
+    # and at B = 3 and 17 (the batch tiles of 4 and 8 rows)
+    floor = time_ms(lambda: _build.EMPTY.launch(1, 1, 1, 32, 0), flush)
+    log(f"time launch floor (an empty kernel of one warp, flushed like every "
+        f"kernel) kernel_ms={floor:.5f}")
     lg = new_row()
-    for name in ALEXNET_FCS:
-        i, _, p = geo[name]
-        _, h, w, c = shapes[i]
-        cin = h * w * c
-        cb = t(p["codebooks"], torch.bfloat16)
-        ids = t(p["assignments"])
-        bias = t(p["bias"], torch.float32)
-        b = 1
-        x = t(gen.standard_normal((b, cin)), torch.bfloat16)
-        lut = lut_ops.build_lut(x, cb).contiguous()
-        got = pq_lut_gather.lut_gather(lut, ids, bias)
-        want = pq_lut_gather.lut_gather_plain(lut, ids, bias)
-        err = (got - want).abs().max().item()
-        scale = max(1e-6, want.abs().max().item())
-        if not err / scale <= 1e-5:
-            raise AssertionError(f"pq_lut_gather {name}: max_abs_err {err} "
-                                 f"> 1e-5 x {scale}")
-        lg["max_abs_err"] = max(lg["max_abs_err"], err)
-        log(f"check pq_lut_gather {name} B={b} max_abs_err={err:.3e} "
-            f"(rtol 1e-5 of {scale:.3e})")
-        s, k, _ = cb.shape
-        cout = ids.shape[0]
-        idx = ids.long().t().expand(b, s, cout).contiguous()
-        ms = time_ms(lambda: pq_lut_gather.lut_gather(lut, ids, bias), flush)
-        plain = time_ms(
-            lambda: pq_lut_gather.lut_gather_plain(lut, ids, bias), flush)
-        lib = time_ms(lambda: torch.gather(lut, 2, idx).sum(1) + bias, flush)
-        nbytes = b * s * k * 4 + cout * s + cout * 4 + b * cout * 4
-        ops = b * cout * s
-        b_ms, _ = bound(nbytes, ops, peaks["f32"], peaks)
-        log(f"time pq_lut_gather {name} B={b} kernel_ms={ms:.5f} "
-            f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
-            f"(bytes {nbytes}, adds {ops})")
-        add_timing(lg, 1, ms, plain, lib, b_ms, nbytes, ops, peaks["f32"],
-                   peaks)
+    for b in (1, 2, 3, 17):
+        for name in ALEXNET_FCS:
+            lut, ids, bias = gather_fc_inputs(geo, spec, name, b, gen, dev)
+            _, s, k = lut.shape
+            cout = ids.shape[0]
+            pl = pq_lut_gather.plan(b, s, k, cout)
+            if pl.variant != "staged" or pl.smem_bytes > 232448:
+                raise AssertionError(f"pq_lut_gather {name} B={b}: {pl}")
+            if b <= 2 and pl.splits == 1:
+                raise AssertionError(f"pq_lut_gather {name} B={b}: no split "
+                                     f"sum to check in {pl}")
+            want = pq_lut_gather.lut_gather_plain(lut, ids, bias)
+            scale = max(1e-6, want.abs().max().item())
+            got = pq_lut_gather.lut_gather(lut, ids, bias)
+            again = pq_lut_gather.lut_gather(lut, ids, bias)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not err <= 1e-5 * scale:
+                raise AssertionError(
+                    f"pq_lut_gather {name} B={b}: max_abs_err {err} > 1e-5 "
+                    f"x {scale}")
+            if not torch.equal(got, again):
+                raise AssertionError(
+                    f"pq_lut_gather {name} B={b}: two launches of the "
+                    f"{pl.splits}-way split differ")
+            # the order of additions that the CPU tests hold against the
+            # JAX kernel is the order the kernel adds in
+            if not torch.equal(got, pq_lut_gather.split_sum_plain(
+                    lut, ids, bias, pl)):
+                raise AssertionError(
+                    f"pq_lut_gather {name} B={b}: not the bits of "
+                    f"split_sum_plain under {pl}")
+            lg["max_abs_err"] = max(lg["max_abs_err"], err)
+            log(f"check pq_lut_gather {name} B={b} splits={pl.splits} "
+                f"max_abs_err={err:.3e} (rtol 1e-5 of {scale:.3e}) two "
+                "launches bit-identical, bit-equal to split_sum_plain")
+            if b > 2:
+                continue
+            idx = ids.long().t().expand(b, s, cout)
+            ms = time_ms(lambda: pq_lut_gather.lut_gather(lut, ids, bias),
+                         flush)
+            fc_ms = time_ms(lambda: pq_fc.gather_accumulate(lut, ids, bias),
+                            flush)
+            # an empty kernel of the plan's grid, block and shared memory
+            plan_floor = time_ms(lambda: _build.EMPTY.launch(
+                *pl.grid, 256, pl.smem_bytes), flush)
+            plain = time_ms(
+                lambda: pq_lut_gather.lut_gather_plain(lut, ids, bias), flush)
+            lib = time_ms(lambda: torch.gather(lut, 2, idx).sum(1) + bias,
+                          flush)
+            nbytes = b * s * k * 4 + cout * s + cout * 4 + b * cout * 4
+            ops = b * cout * s
+            b_ms, by = bound(nbytes, ops, peaks["f32"], peaks)
+            log(f"time pq_lut_gather {name} B={b} rows={pl.rows} "
+                f"outputs={pl.outputs} groups={pl.groups} "
+                f"splits={pl.splits} grid={pl.grid} "
+                f"smem={pl.smem_bytes} kernel_ms={ms:.5f} "
+                f"pq_fc_ms={fc_ms:.5f} plain_ms={plain:.5f} "
+                f"library_ms={lib:.5f} bound_ms={b_ms:.5f} bound_by={by} "
+                f"launch_floor_ms={floor:.5f} "
+                f"empty_kernel_of_this_grid_ms={plan_floor:.5f} "
+                f"(bytes {nbytes}, adds {ops})")
+            if not ms < lib:
+                raise AssertionError(
+                    f"pq_lut_gather {name} B={b}: kernel {ms} ms is not "
+                    f"under the library call's {lib} ms")
+            if b == 1:  # the path's batch
+                add_timing(lg, 1, ms, plain, lib, b_ms, nbytes, ops,
+                           peaks["f32"], peaks)
     rows["pq_lut_gather"] = close_row(lg)
+    # the staged kernel off AlexNet's shapes: one split (the sums written
+    # with the bias, no reduce), warps of a block with no unit of their own,
+    # three batch tiles, K no power of two, one narrow tile split 64 ways
+    for b, s, k, cout in LUT_GATHER_ODD:
+        lut = t(gen.standard_normal((b, s, k)), torch.float32)
+        ids = t(gen.integers(0, k, (cout, s), dtype=np.uint8))
+        bias = t(gen.standard_normal(cout), torch.float32)
+        want = pq_lut_gather.lut_gather_plain(lut, ids, bias)
+        pl = pq_lut_gather.plan(b, s, k, cout)
+        if pl.variant != "staged":
+            raise AssertionError(f"pq_lut_gather odd B={b} S={s} K={k} "
+                                 f"Cout={cout}: planned {pl}")
+        got = pq_lut_gather.lut_gather(lut, ids, bias)
+        again = pq_lut_gather.lut_gather(lut, ids, bias)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not (err <= 1e-5 * want.abs().max().item()
+                and torch.equal(got, again)
+                and torch.equal(got, pq_lut_gather.split_sum_plain(
+                    lut, ids, bias, pl))):
+            raise AssertionError(f"pq_lut_gather odd B={b} S={s} K={k} "
+                                 f"Cout={cout} {pl}: max_abs_err {err}")
+        log(f"check pq_lut_gather odd B={b} S={s} K={k} Cout={cout} "
+            f"outputs={pl.outputs} groups={pl.groups} "
+            f"splits={pl.splits} grid={pl.grid} "
+            f"max_abs_err={err:.3e} two launches bit-identical, bit-equal "
+            "to split_sum_plain")
 
     # the kernels' other paths, off AlexNet's shapes: Cin not a multiple of
     # 8 (no 16-byte x loads), a codebook span too large to stage (K=128,
     # D=8), ragged B, Cout and S
-    for b, cin, cout, s, k, d in ((70, 58, 250, 15, 32, 4),
-                                  (5, 3, 40, 1, 128, 8),
-                                  (130, 130, 129, 33, 16, 4)):
+    lgg = new_row()
+    for b, cin, cout, s, k, d in FC_RAGGED:
         params = {"codebooks": t(gen.standard_normal((s, k, d)),
                                  torch.bfloat16),
                   "assignments": t(gen.integers(0, k, (cout, s),
@@ -296,11 +381,15 @@ def phase_kernels(geo, spec, dev, flush, peaks):
                                        params["assignments"], params["bias"])
         err = (pq_fc_fused.pq_fc_fused(x, params) - want).abs().max().item()
         lut = lut_ops.build_lut(x, params["codebooks"]).contiguous()
+        if pq_lut_gather.plan(b, s, k, cout).variant != "general":
+            raise AssertionError(f"pq_lut_gather ragged S={s} K={k}: planned "
+                                 f"{pq_lut_gather.plan(b, s, k, cout)}")
         want_l = pq_lut_gather.lut_gather_plain(lut, params["assignments"],
                                                 params["bias"])
         err_l = (pq_lut_gather.lut_gather(lut, params["assignments"],
                                           params["bias"])
                  - want_l).abs().max().item()
+        lgg["max_abs_err"] = max(lgg["max_abs_err"], err_l)
         dec = pq_decode.decode_rows(params["codebooks"],
                                     params["assignments"], cin)
         if (err > 1e-4 * want.abs().max().item()
@@ -310,11 +399,30 @@ def phase_kernels(geo, spec, dev, flush, peaks):
             raise AssertionError(f"ragged B={b} Cin={cin} Cout={cout} S={s} "
                                  f"K={k} D={d}: fused {err}, lut {err_l}")
         log(f"check ragged B={b} Cin={cin} Cout={cout} S={s} K={k} D={d}: "
-            f"fused max_abs_err={err:.3e} lut max_abs_err={err_l:.3e} "
-            "decode bit-exact")
+            f"fused max_abs_err={err:.3e} lut (general kernel) "
+            f"max_abs_err={err_l:.3e} decode bit-exact")
+        ids, bias = params["assignments"], params["bias"]
+        idx = ids.long().t().expand(b, s, cout)
+        ms = time_ms(lambda: pq_lut_gather.lut_gather(lut, ids, bias), flush)
+        plain = time_ms(
+            lambda: pq_lut_gather.lut_gather_plain(lut, ids, bias), flush)
+        lib = time_ms(lambda: torch.gather(lut, 2, idx).sum(1) + bias, flush)
+        nbytes = b * s * k * 4 + cout * s + cout * 4 + b * cout * 4
+        b_ms, by = bound(nbytes, b * cout * s, peaks["f32"], peaks)
+        log(f"time pq_lut_gather_general ragged B={b} S={s} K={k} "
+            f"Cout={cout} kernel_ms={ms:.5f} plain_ms={plain:.5f} "
+            f"library_ms={lib:.5f} bound_ms={b_ms:.5f} bound_by={by} "
+            f"launch_floor_ms={floor:.5f} (bytes {nbytes}, adds "
+            f"{b * cout * s})")
+        add_timing(lgg, 1, ms, plain, lib, b_ms, nbytes, b * cout * s,
+                   peaks["f32"], peaks)
+    rows["pq_lut_gather_general"] = close_row(lgg)
     return rows
 
 
+# pq_lut_gather's staged kernel off AlexNet's shapes: (B, S, K, Cout)
+LUT_GATHER_ODD = ((2, 96, 32, 300), (3, 160, 16, 70), (17, 48, 8, 40),
+                  (5, 48, 20, 70), (1, 4096, 16, 10), (9, 2304, 32, 130))
 # pq_fc off AlexNet's shapes: (B, S, K, Cout). S not a multiple of 16 (ids
 # staged with plain loads), K = 256 (a 4-sub-space chunk), K not a multiple
 # of 4 (the LUT staged 4 bytes at a time), more rows than a batch tile
@@ -371,11 +479,19 @@ def alexnet_decode_items(geo, spec, dev, dtype):
 
 
 def phase_gather_times(geo, spec, dev, flush):
-    """The times of pq_fc (fc6-8 at B = 256, 64, 3, 1) and of pq_decode
-    (conv1-5, one call each), through the entry points that every version
-    of the port has (`gather_accumulate`, `decode_rows`): the table that
-    compares two checkouts of the package inside one call."""
-    from qcnn_tpu_torch.ops.cuda import pq_decode, pq_fc
+    """The times of pq_fc (fc6-8 at B = 256, 64, 3, 1), of pq_decode
+    (conv1-5, one call each), of pq_lut_gather (fc6-8 at B = 1, 2) and of
+    lrn_fused (AlexNet's two LRNs at B=256, bf16), through the entry points
+    that every version of the port has (`gather_accumulate`, `decode_rows`,
+    `lut_gather`, `lrn_fused`): the table that compares two checkouts of
+    the package inside one call."""
+    from qcnn_tpu_torch.core import LRNSpec
+    from qcnn_tpu_torch.ops.cuda import (
+        lrn_fused,
+        pq_decode,
+        pq_fc,
+        pq_lut_gather,
+    )
 
     gen = np.random.default_rng(11)
     for b in (256, 64, 3, 1):
@@ -392,6 +508,29 @@ def phase_gather_times(geo, spec, dev, flush):
         total += ms
         log(f"gather-times pq_decode {name} kernel_ms={ms:.5f}")
     log(f"gather-times pq_decode conv1-5 one call each kernel_ms={total:.5f}")
+    for b in (1, 2):
+        total = 0.0
+        for name in ALEXNET_FCS:
+            lut, ids, bias = gather_fc_inputs(geo, spec, name, b, gen, dev)
+            ms = time_ms(lambda: pq_lut_gather.lut_gather(lut, ids, bias),
+                         flush)
+            total += ms
+            log(f"gather-times pq_lut_gather {name} B={b} kernel_ms={ms:.5f}")
+        log(f"gather-times pq_lut_gather fc6-8 B={b} kernel_ms={total:.5f}")
+    total = 0.0
+    tgen = torch.Generator(device=dev).manual_seed(11)
+    for i, layer in enumerate(spec.layers):
+        if not isinstance(layer, LRNSpec):
+            continue
+        shape = spec.feature_shapes(batch=256)[i]
+        x = torch.randn(shape, generator=tgen, device=dev).mul_(3).to(
+            torch.bfloat16)
+        ms = time_ms(lambda: lrn_fused.lrn_fused(
+            x, size=layer.size, alpha=layer.alpha, beta=layer.beta,
+            k=layer.k), flush)
+        total += ms
+        log(f"gather-times lrn_fused {tuple(shape)} bf16 kernel_ms={ms:.5f}")
+    log(f"gather-times lrn_fused both kernel_ms={total:.5f}")
 
 
 def phase_gather_kernels(spec, geo, rparams, dev, flush, peaks):
@@ -593,14 +732,17 @@ RESNET50_FUSED = (("s2b1", 14, 5), ("s3b1", 7, 2))
 
 
 def phase_other_kernels(spec, geo, dev, flush, peaks):
-    """Phases 3 and 4 for lrn_fused (AlexNet's two LRNs at B=256); then
-    lrn_fused's own entry point on those shapes, counted. Returns (rows,
-    counts of the entry-point run)."""
+    """Phases 3 and 4 for lrn_fused (AlexNet's two LRNs at B=256) and its
+    general kernel (a window of 9, rows of 130 channels); then lrn_fused's
+    own entry point on AlexNet's shapes, counted, and the general kernels
+    of lrn_fused and pq_lut_gather through their public entry points,
+    counted. Returns (rows, counts of the entry-point run, counts of the
+    general kernels' run)."""
     import torch.nn.functional as F
 
     from qcnn_tpu_torch.core import LRNSpec
     from qcnn_tpu_torch.ops import cuda as cuda_ops
-    from qcnn_tpu_torch.ops.cuda import lrn_fused
+    from qcnn_tpu_torch.ops.cuda import lrn_fused, pq_lut_gather
 
     gen = np.random.default_rng(11)
     tgen = torch.Generator(device=dev).manual_seed(11)
@@ -625,24 +767,36 @@ def phase_other_kernels(spec, geo, dev, flush, peaks):
         ulp = torch.ldexp(torch.ones_like(want),
                           torch.frexp(want).exponent - 8)
         for window in lrn_fused.WINDOWS:
-            diff = (lrn_fused.lrn_fused(x, window=window, **kw).float()
-                    - want).abs()
+            got = lrn_fused.lrn_fused(x, window=window, **kw)
+            diff = (got.float() - want).abs()
             if not bool((diff <= ulp).all()):
                 raise AssertionError(f"lrn_fused {tuple(shape)} {window}: "
                                      "more than one bf16 ulp off")
             lr["max_abs_err"] = max(lr["max_abs_err"], diff.max().item())
-        log(f"check lrn_fused {tuple(shape)} bf16 windows={lrn_fused.WINDOWS}"
-            f" max_abs_err={lr['max_abs_err']:.3e} (<= 1 bf16 ulp each)")
         del want, ulp, diff
+        # the order of additions that the CPU tests hold against the JAX
+        # kernels is the order the kernel adds in
+        if not torch.equal(got, lrn_fused.lrn_window_plain(x, **kw)):
+            raise AssertionError(f"lrn_fused {tuple(shape)}: not the bits "
+                                 "of lrn_window_plain")
+        log(f"check lrn_fused {tuple(shape)} bf16 windows={lrn_fused.WINDOWS}"
+            f" max_abs_err={lr['max_abs_err']:.3e} (<= 1 bf16 ulp each), "
+            "bit-equal to lrn_window_plain")
+        del got
+        pl = lrn_fused.plan(x.numel(), shape[-1], (layer.size - 1) // 2, 2)
+        if pl.variant != "register":
+            raise AssertionError(f"lrn_fused {tuple(shape)}: the main "
+                                 f"shape planned {pl}")
         xn = x.permute(0, 3, 1, 2)
         ms = time_ms(lambda: lrn_fused.lrn_fused(x, **kw), flush)
         plain = time_ms(lambda: lrn_fused.lrn_plain(x, **kw), flush)
         lib = time_ms(lambda: F.local_response_norm(xn, **kw), flush)
         nbytes = 2 * x.numel() * x.element_size()
         b_ms, by = bound(nbytes, 0, peaks["f32"], peaks)
-        log(f"time lrn_fused {tuple(shape)} kernel_ms={ms:.5f} "
-            f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} "
-            f"bound_by={by} (bytes {nbytes})")
+        log(f"time lrn_fused {tuple(shape)} kernel={pl.variant} "
+            f"vectors={pl.vectors} blocks={pl.blocks} smem={pl.smem_bytes} "
+            f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+            f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes})")
         add_timing(lr, 1, ms, plain, lib, b_ms, nbytes, 0, peaks["f32"],
                    peaks)
     rows["lrn_fused"] = close_row(lr)
@@ -659,6 +813,75 @@ def phase_other_kernels(spec, geo, dev, flush, peaks):
         log(f"check lrn_fused f32 {shape} betas 0.75/0.5/1.0/0.6 "
             "(rtol 1e-6)")
 
+    def hold(x, size, variant, label, beta=0.75):
+        """One more case of either dtype under the same limits."""
+        kw = dict(size=size, alpha=1e-2, beta=beta, k=1.0)
+        pl = lrn_fused.plan(x.numel(), x.shape[-1], (size - 1) // 2,
+                            x.element_size())
+        if pl.variant != variant:
+            raise AssertionError(f"lrn_fused {label}: planned {pl}")
+        want = lrn_fused.lrn_plain(x, **kw).float()
+        got = lrn_fused.lrn_fused(x, **kw)
+        diff = (got.float() - want).abs()
+        same = torch.equal(got, lrn_fused.lrn_window_plain(x, **kw))
+        if x.dtype == torch.bfloat16:
+            ulp = torch.ldexp(torch.ones_like(want),
+                              torch.frexp(want).exponent - 8)
+            ok = bool((diff <= ulp).all())
+        else:
+            ok = diff.max().item() <= 1e-6 * want.abs().max().item()
+        if not (ok and same):
+            raise AssertionError(f"lrn_fused {label}: max_abs_err "
+                                 f"{diff.max().item()}, bit-equal to "
+                                 f"lrn_window_plain: {same}")
+        log(f"check lrn_fused {label} {tuple(x.shape)} size={size} "
+            f"kernel={pl.variant} max_abs_err={diff.max().item():.3e} "
+            f"bit_equal_to_lrn_window_plain={same}")
+        return diff.max().item()
+
+    # window sizes 3 and 7 (the register kernel's other radii) and 9 (the
+    # general kernel), rows that are no whole 16-byte vectors, a base
+    # pointer off the 16-byte grid (the wrapper copies), a tensor that ends
+    # inside a warp's span
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((3, 13, 13, 96), (2, 27, 27, 256), (1000, 8)):
+            x = t(gen.standard_normal(shape) * 3, dtype)
+            for size in (3, 5, 7):
+                hold(x, size, "register", f"{dtype}")
+            hold(x, 9, "general", f"{dtype}")
+        hold(t(gen.standard_normal((7, 5, 130)) * 3, dtype), 5, "general",
+             f"{dtype} rows of 130")
+        hold(t(gen.standard_normal((33, 100)) * 3, dtype), 3,
+             "register" if dtype == torch.float32 else "general",
+             f"{dtype} rows of 100")
+        base = t(gen.standard_normal(6 * 96 + 1) * 3, dtype)
+        hold(base[1:].view(6, 96), 5, "register", f"{dtype} unaligned base")
+
+    # the general kernel, timed: a window wider than the register kernel is
+    # built for, and rows that are no whole 16-byte vectors
+    lrg = new_row()
+    for shape, dtype, size in (((64, 27, 27, 256), torch.bfloat16, 9),
+                               ((16384, 130), torch.float32, 5)):
+        x = torch.randn(shape, generator=tgen, device=dev).mul_(3).to(dtype)
+        kw = dict(size=size, alpha=1e-2, beta=0.75, k=1.0)
+        lrg["max_abs_err"] = max(lrg["max_abs_err"],
+                                 hold(x, size, "general", f"{dtype} timed"))
+        xn = x.movedim(-1, 1) if x.dim() > 2 else x.unsqueeze(-1)
+        ms = time_ms(lambda: lrn_fused.lrn_fused(x, **kw), flush)
+        plain = time_ms(lambda: lrn_fused.lrn_plain(x, **kw), flush)
+        lib = time_ms(lambda: F.local_response_norm(xn, **kw), flush)
+        nbytes = 2 * x.numel() * x.element_size()
+        b_ms, by = bound(nbytes, 0, peaks["f32"], peaks)
+        pl = lrn_fused.plan(x.numel(), shape[-1], (size - 1) // 2,
+                            x.element_size())
+        log(f"time lrn_fused_general {tuple(shape)} {dtype} size={size} "
+            f"kernel={pl.variant} blocks={pl.blocks} smem={pl.smem_bytes} "
+            f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+            f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes})")
+        add_timing(lrg, 1, ms, plain, lib, b_ms, nbytes, 0, peaks["f32"],
+                   peaks)
+    rows["lrn_fused_general"] = close_row(lrg)
+
     # lrn_fused's own entry point, as its users call it (no forward does)
     cuda_ops.reset_launches()
     for x, kw in inputs:
@@ -668,7 +891,26 @@ def phase_other_kernels(spec, geo, dev, flush, peaks):
     if counts != {name: (len(inputs) if name == "lrn_fused" else 0)
                   for name in counts}:
         raise AssertionError(f"lrn_fused entry point: launches {counts}")
-    return rows, counts
+
+    # the general kernels of the two through their public entry points, as
+    # a caller with such a shape reaches them (no model of the smoke has one)
+    cuda_ops.reset_launches()
+    b, cin, cout, s, k, d = FC_RAGGED[0]
+    pq_lut_gather.pq_fc_lut_gather(
+        t(gen.standard_normal((b, cin)), torch.bfloat16),
+        {"codebooks": t(gen.standard_normal((s, k, d)), torch.bfloat16),
+         "assignments": t(gen.integers(0, k, (cout, s), dtype=np.uint8)),
+         "bias": t(gen.standard_normal(cout), torch.float32)})
+    lrn_fused.lrn_fused(t(gen.standard_normal((7, 5, 130)), torch.float32),
+                        size=5, alpha=1e-4, beta=0.75, k=2.0)
+    torch.cuda.synchronize()
+    general_counts = cuda_ops.launches()
+    if general_counts != {
+            name: int(name in ("pq_lut_gather_general", "lrn_fused_general"))
+            for name in general_counts}:
+        raise AssertionError(f"general entry points of pq_lut_gather and "
+                             f"lrn_fused: launches {general_counts}")
+    return rows, counts, general_counts
 
 
 # shapes off the models' paths. The first group of each kind is taken by
@@ -931,7 +1173,8 @@ def phase_fused_kernels(spec, geo, rparams, dev, flush, peaks):
         random_params((cout, kh, kh, s), s, k, d), stride=1, pad=pad)
     torch.cuda.synchronize()
     counts = cuda_ops.launches()
-    if counts != {name: (1 if name.endswith("_general") else 0)
+    if counts != {name: int(name in ("pq_fc_fused_general",
+                                     "pq_conv_fused_general"))
                   for name in counts}:
         raise AssertionError(f"general entry points: launches {counts}")
     return rows, counts
@@ -1115,9 +1358,13 @@ def main() -> int:
     only.add_argument("--only-gather", action="store_true",
                       help="stop after the build and the two gathers "
                            "(pq_fc, pq_decode)")
+    only.add_argument("--only-lut-lrn", action="store_true",
+                      help="stop after the build, pq_lut_gather and "
+                           "lrn_fused")
     only.add_argument("--gather-times", action="store_true",
-                      help="only time pq_fc and pq_decode through the entry "
-                           "points every version of the port has")
+                      help="only time pq_fc, pq_decode, pq_lut_gather and "
+                           "lrn_fused through the entry points every version "
+                           "of the port has")
     parser.add_argument("--root", default=None,
                         help="with --gather-times: the checkout whose "
                              "qcnn_tpu_torch is timed (default: this one)")
@@ -1131,6 +1378,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(
         args.root or os.path.dirname(os.path.abspath(__file__))))
     from qcnn_tpu_torch.models import resnet, synth, zoo
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
     from qcnn_tpu_torch.ops.cuda import _build
 
     # phase 1: device
@@ -1161,6 +1409,13 @@ def main() -> int:
     if args.gather_times:
         phase_gather_times(geo, spec, dev, flush)
         return 0
+    if args.only_lut_lrn:
+        rows = phase_kernels(geo, spec, dev, flush, peaks)
+        rows |= phase_other_kernels(spec, geo, dev, flush, peaks)[0]
+        log(f"launches since the last reset: {cuda_ops.launches()}")
+        log(json.dumps({"partial": "pq_lut_gather and lrn_fused only",
+                        "rows": rows}))
+        return 0
     rparams = synth.random_resnet_pq_params(resnet.resnet50(), seed=0)
     if args.only_gather:
         rows = phase_gather_kernels(spec, geo, rparams, dev, flush, peaks)
@@ -1176,8 +1431,10 @@ def main() -> int:
         return 0
     rows |= phase_gather_kernels(spec, geo, rparams, dev, flush, peaks)
     rows |= phase_kernels(geo, spec, dev, flush, peaks)
-    new_rows, lrn_counts = phase_other_kernels(spec, geo, dev, flush, peaks)
+    new_rows, lrn_counts, more_general = phase_other_kernels(
+        spec, geo, dev, flush, peaks)
     rows |= new_rows
+    add_counts(general_counts, more_general)
     del flush
 
     # phases 5-7: the paths, end to end
@@ -1194,6 +1451,8 @@ def main() -> int:
         "pq_fc": ("alexnet pallas",),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),
+        "pq_lut_gather_general": ("general entry points",),
+        "lrn_fused_general": ("general entry points",),
     }
     launches = {}
     for name, paths in owners.items():
@@ -1222,6 +1481,10 @@ def main() -> int:
         "pq_conv_fused_general": (
             "qcnn_tpu_torch/csrc/pq_conv_fused_general.cu",
             "qcnn_tpu/ops/pallas/pq_conv_fused.py:93"),
+        "pq_lut_gather_general": ("qcnn_tpu_torch/csrc/pq_lut_gather.cu",
+                                  "qcnn_tpu/ops/pallas/pq_lut_gather.py:67"),
+        "lrn_fused_general": ("qcnn_tpu_torch/csrc/lrn_fused.cu",
+                              "qcnn_tpu/ops/pallas/lrn_fused.py:102"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -17,10 +17,12 @@ KERNELS = {
     "lrn_fused": lrn_fused.KERNEL,
     "pq_conv_fused": pq_conv_fused.KERNEL,
     "pq_fc": pq_fc.KERNEL,
-    # the general paths of the two decode-GEMMs, for the shapes their wgmma
-    # kernels do not take
+    # the general kernels, for the shapes that the two wgmma kernels, the
+    # staged gather and the register-window LRN do not take
     "pq_fc_fused_general": pq_fc_fused.GENERAL,
     "pq_conv_fused_general": pq_conv_fused.GENERAL,
+    "pq_lut_gather_general": pq_lut_gather.GENERAL,
+    "lrn_fused_general": lrn_fused.GENERAL,
 }
 
 

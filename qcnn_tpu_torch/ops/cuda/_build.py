@@ -130,6 +130,11 @@ class Kernel:
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 
+# csrc/launch_floor.cu: an empty kernel of a given grid (x, y, z), block and
+# dynamic shared memory, timed as the floor of such a launch; no path of the
+# port launches it
+EMPTY = Kernel("empty_launch", [INT, INT, INT, INT, INT, PTR])
+
 
 def check_cuda(name: str, **tensors) -> None:
     """Raise unless every tensor lies on one CUDA device and is

@@ -1,6 +1,6 @@
 """Launch plans of the kernels whose launch depends on the shape (the two
-decode-GEMMs, the ``pq_fc`` gather and ``pq_decode``), as pure functions of
-the shape.
+decode-GEMMs, the ``pq_fc`` and ``pq_lut_gather`` gathers, ``pq_decode`` and
+``lrn_fused``), as pure functions of the shape.
 
 ``csrc/pq_tile.cuh`` holds the kernel that ``pq_fc_fused`` and
 ``pq_conv_fused`` share (``wgmma``, the weight decoded into registers). It
@@ -10,11 +10,16 @@ contraction is split across blocks and how large the partial-sum workspace
 is are decided here from the shape alone, never from a failure, so the CPU
 tests can check the decision and the C launchers only validate it.
 
-The constants mirror ``pq_tile.cuh``, ``pq_fc.cu`` and ``pq_decode.cu``.
+The constants mirror ``pq_tile.cuh``, ``pq_fc.cu``, ``pq_lut_gather.cu``,
+``pq_decode.cu`` and ``lrn_fused.cu``.
 
 :func:`plan_gather` plans ``pq_fc`` (rows and outputs a block, the chunk of
-sub-spaces a stage, the split of S) and :func:`plan_decode` plans one item
-of a ``pq_decode`` launch (the 16-byte vector kernel or the general one).
+sub-spaces a stage, the split of S), :func:`plan_lut_gather` plans
+``pq_lut_gather`` (the staged kernel's rows, outputs and split of S, or the
+general kernel), :func:`plan_decode` plans
+one item of a ``pq_decode`` launch (the 16-byte vector kernel or the general
+one) and :func:`plan_lrn` plans ``lrn_fused`` (the register-window kernel or
+the general one).
 """
 
 from __future__ import annotations
@@ -190,6 +195,89 @@ def plan_gather(b: int, s: int, k: int, cout: int) -> GatherPlan:
                       splits * b * cout * 4 if splits > 1 else 0)
 
 
+# ---- pq_lut_gather: the small-batch LUT gather -----------------------------
+
+LUTG_THREADS = 256         # 8 warps a block
+LUTG_WARPS = LUTG_THREADS // 32
+LUTG_ROWS = (1, 2, 4, 8)   # batch rows a block: the instantiations
+LUTG_OUTPUTS = (256, 128, 64, 32)   # outputs a block: 32 a warp
+LUTG_UNIT = 16             # ids a 16-byte load: S is split in such units
+LUTG_SPLITS = 8            # blocks along S where the grid is wide enough
+LUTG_MIN_UNITS = 4         # units a block, at least, where S is split
+LUTG_MIN_BLOCKS = SM_COUNT * 3 // 4   # a grid under this is widened
+
+
+@dataclass(frozen=True)
+class LutGatherPlan:
+    variant: str           # "staged" or "general"
+    rows: int              # batch rows per block
+    outputs: int           # outputs per block
+    groups: int            # warps that share an output: sub-ranges of a
+                           # block's range, 8 warps / (outputs / 32)
+    splits: int            # blocks that share one output tile's sum over S
+    units_per_split: int   # 16-id units of S a block owns
+    grid: tuple[int, int, int]   # (output tiles, batch tiles, splits)
+    smem_bytes: int        # dynamic shared memory of a block
+    workspace_bytes: int   # float32 partial sums that a second launch adds
+                           # up in split order; 0 when splits == 1
+
+
+def lut_gather_smem(rows: int, units: int, k: int) -> int:
+    """A block's shared memory: one partial sum a thread and row, and the
+    rows' LUT slices of `units` 16-id units."""
+    return (LUTG_THREADS * rows + rows * units * LUTG_UNIT * k) * 4
+
+
+def plan_lut_gather(b: int, s: int, k: int, cout: int) -> LutGatherPlan:
+    """Plan of ``pq_lut_gather`` for a LUT (b, s, k) and ids (cout, s).
+
+    The staged kernel keeps a block's LUT slice in shared memory and reads
+    the ids as 16-byte words, so it takes S % 16 == 0 (every id row starts
+    16-byte aligned) and K % 4 == 0 (every LUT slice does); every other
+    shape runs the general kernel (a warp a (row, output), the LUT left to
+    the caches).
+
+    Every block stages its rows' slices, so a launch reads the LUT once an
+    output tile: the plan takes the widest tile that still gives about a
+    block an SM, 8 blocks along S, and more of them only where the slice
+    would not fit or the widest grid is still short.
+
+    Raises ValueError for a batch of more tiles than a launch's grid has
+    (65535 tiles of 8 rows; 65535 rows for the general kernel)."""
+    rows = next(r for r in LUTG_ROWS if r >= min(b, LUTG_ROWS[-1]))
+    # 16-id units of a row's slice that fit beside the partial sums
+    fit = ((SMEM_LIMIT - lut_gather_smem(rows, 0, k))
+           // (rows * LUTG_UNIT * k * 4))
+    staged = not (s == 0 or s % LUTG_UNIT or k % 4 or fit < 1
+                  or s // LUTG_UNIT > fit * MAX_GRID_YZ
+                  or b * s * k >= 2 ** 31 or cout * s >= 2 ** 31
+                  or b * cout >= 2 ** 31)
+    b_tiles = ceil_div(b, rows) if staged else b
+    if b_tiles > MAX_GRID_YZ:
+        raise ValueError(f"pq_lut_gather: a batch of {b} rows is more than "
+                         f"one launch takes ({MAX_GRID_YZ} batch tiles of "
+                         f"{rows if staged else 1})")
+    if not staged:
+        return LutGatherPlan("general", 1, LUTG_WARPS, 1, 1, 0,
+                             (ceil_div(cout, LUTG_WARPS), b, 1), 0, 0)
+    units = s // LUTG_UNIT
+    most = max(1, units // LUTG_MIN_UNITS)
+    splits = max(ceil_div(units, fit), min(LUTG_SPLITS, most))
+    narrowest = ceil_div(cout, LUTG_OUTPUTS[-1]) * b_tiles
+    if narrowest * splits < LUTG_MIN_BLOCKS:
+        splits = max(splits, min(most, ceil_div(LUTG_MIN_BLOCKS, narrowest)))
+    per_split = ceil_div(units, min(splits, MAX_GRID_YZ))
+    splits = ceil_div(units, per_split)     # no empty split
+    outputs = next((o for o in LUTG_OUTPUTS
+                    if ceil_div(cout, o) * b_tiles * splits
+                    >= LUTG_MIN_BLOCKS), LUTG_OUTPUTS[-1])
+    return LutGatherPlan(
+        "staged", rows, outputs, LUTG_WARPS * 32 // outputs, splits,
+        per_split, (ceil_div(cout, outputs), b_tiles, splits),
+        lut_gather_smem(rows, per_split, k),
+        splits * b * cout * 4 if splits > 1 else 0)
+
+
 # ---- pq_decode: one item of a (grouped) launch ----------------------------
 
 DECODE_UNITS = 1024        # 16-byte vectors a block of the vector kernel
@@ -225,3 +313,36 @@ def plan_decode(n: int, s: int, k: int, d: int, row_len: int,
                           max(1, 16 // cw))
     units = n * row_len
     return DecodePlan("general", units, ceil_div(units, DECODE_ELEMENTS), 0)
+
+
+# ---- lrn_fused -------------------------------------------------------------
+
+LRN_THREADS = 256          # threads a block, both kernels
+LRN_VECTORS = 4            # 16-byte vectors a thread of the register kernel
+LRN_RADII = (1, 2, 3)      # window radii the register kernel is built for
+
+
+@dataclass(frozen=True)
+class LrnPlan:
+    variant: str           # "register" or "general"
+    vectors: int           # 16-byte vectors a thread
+    blocks: int
+    smem_bytes: int        # dynamic shared memory of a block
+
+
+def plan_lrn(n: int, c: int, radius: int, elem_bytes: int) -> LrnPlan:
+    """Plan of ``lrn_fused`` for n elements of ``elem_bytes`` bytes in rows
+    of c channels, window radius ``radius``.
+
+    The register kernel keeps the window in registers and takes the
+    neighbours from the adjacent lanes: it is built for radii 1 to 3, takes
+    rows that are whole 16-byte vectors (a vector never crosses a channel
+    edge) and indexes vectors with 32 bits. Every other shape runs the
+    general kernel, whose window goes through shared memory."""
+    v = 16 // elem_bytes
+    if radius in LRN_RADII and c % v == 0 and n < 2 ** 31:
+        return LrnPlan("register", LRN_VECTORS,
+                       ceil_div(n // v, LRN_THREADS * LRN_VECTORS), 0)
+    slots = LRN_THREADS * v + 2 * radius
+    return LrnPlan("general", 1, ceil_div(n, LRN_THREADS * v),
+                   (slots + slots // 32 + 1) * 4)

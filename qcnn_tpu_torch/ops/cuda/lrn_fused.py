@@ -11,8 +11,15 @@ the result in x's dtype. All three JAX windows ("dot", "roll", "shift")
 square in x's dtype: the "shift" kernel squares before it widens
 (``(x * x).astype(jnp.float32)``, lrn_fused.py:81), although its docstring
 says it squares in float32 (see ROADMAP.md B2). They differ only in the order
-of their float32 sums, so one kernel (``csrc/lrn_fused.cu``) serves all
-three names, which are still validated.
+of their float32 sums, so one entry (``csrc/lrn_fused.cu``) serves all
+three names, which are still validated. It launches one of two kernels,
+picked from the shape by ``plan`` (``_plan.plan_lrn``): the register kernel
+(``KERNEL``; window radius 1 to 3, rows that are whole 16-byte vectors: the
+window stays in registers and the neighbours come from the adjacent lanes)
+or the general one (``GENERAL``; the window goes through shared memory),
+each with its own launch count. Both add the window's squares in channel
+order; :func:`lrn_window_plain` repeats that order in PyTorch
+(``chip_smoke.py`` holds both kernels to it bit for bit).
 
 As in the JAX package, the kernel is an entry point of its own and is wired
 into nothing: ``ops.misc.lrn`` stays plain PyTorch. Its plain version is
@@ -28,23 +35,40 @@ import ctypes
 import torch
 
 from qcnn_tpu_torch.ops import misc
+from qcnn_tpu_torch.ops.cuda import _plan
 from qcnn_tpu_torch.ops.cuda._build import INT, PTR, Kernel, check_cuda
 
 WINDOWS = ("dot", "roll", "shift")
 _BETA_MODES = {0.75: 0, 0.5: 1, 1.0: 2}  # ops.misc._neg_pow's compositions
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-KERNEL = Kernel(
-    "lrn_fused_launch",
-    [PTR, PTR, ctypes.c_longlong, INT, INT, ctypes.c_float, ctypes.c_float,
-     ctypes.c_float, INT, INT, PTR],
-)
+_ARGTYPES = [  # x, out, n, C, radius, alpha/size, k, beta, beta mode, dtype,
+    PTR, PTR, ctypes.c_longlong, INT, INT, ctypes.c_float,  # stream
+    ctypes.c_float, ctypes.c_float, INT, INT, PTR]
+KERNEL = Kernel("lrn_fused_launch", _ARGTYPES)           # the register kernel
+GENERAL = Kernel("lrn_fused_general_launch", _ARGTYPES)
+plan = _plan.plan_lrn
 
 
 def lrn_plain(x: torch.Tensor, *, size: int, alpha: float, beta: float,
               k: float) -> torch.Tensor:
     """The kernel's function in PyTorch (the banded-matmul LRN)."""
     return misc.lrn(x, size=size, alpha=alpha, beta=beta, k=k, impl="band")
+
+
+def lrn_window_plain(x: torch.Tensor, *, size: int, alpha: float,
+                     beta: float, k: float) -> torch.Tensor:
+    """The kernels' order of float32 additions, in PyTorch: the squares
+    (rounded to x's dtype) of channels c - r to c + r added in that order,
+    those past a channel edge as zeros."""
+    radius = (size - 1) // 2
+    c = x.shape[-1]
+    padded = torch.nn.functional.pad((x * x).float(), (radius, radius))
+    sq_sum = padded[..., :c]
+    for off in range(1, size):
+        sq_sum = sq_sum + padded[..., off:off + c]
+    scale = k + (alpha / size) * sq_sum
+    return (x.float() * misc._neg_pow(scale, beta)).to(x.dtype)
 
 
 def lrn_fused(x: torch.Tensor, *, size: int, alpha: float, beta: float,
@@ -73,7 +97,10 @@ def lrn_fused(x: torch.Tensor, *, size: int, alpha: float, beta: float,
         xc = xc.clone()  # the kernel moves 16 bytes a load
     check_cuda("lrn_fused", x=xc)
     out = torch.empty_like(xc)
-    KERNEL.launch(xc.data_ptr(), out.data_ptr(), xc.numel(), x.shape[-1],
-                  (size - 1) // 2, alpha / size, k, beta,
-                  _BETA_MODES.get(beta, 3), _DTYPES[x.dtype])
+    radius = (size - 1) // 2
+    pl = plan(xc.numel(), x.shape[-1], radius, xc.element_size())
+    kernel = KERNEL if pl.variant == "register" else GENERAL
+    kernel.launch(xc.data_ptr(), out.data_ptr(), xc.numel(), x.shape[-1],
+                  radius, alpha / size, k, beta, _BETA_MODES.get(beta, 3),
+                  _DTYPES[x.dtype])
     return out

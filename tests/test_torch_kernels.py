@@ -222,7 +222,8 @@ def test_plain_versions_do_not_count_launches(rng):
     assert launches() == before
     assert set(KERNELS) == {"pq_decode", "pq_lut_gather", "pq_fc_fused",
                             "lrn_fused", "pq_conv_fused", "pq_fc",
-                            "pq_fc_fused_general", "pq_conv_fused_general"}
+                            "pq_fc_fused_general", "pq_conv_fused_general",
+                            "pq_lut_gather_general", "lrn_fused_general"}
 
 
 def test_non_cpu_tensors_never_fall_back(rng):
