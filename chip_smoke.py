@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only-fused   # phases 1-2 and the two decode-GEMMs
     python3 chip_smoke.py --only-gather  # phases 1-2 and the two gathers
     python3 chip_smoke.py --only-lut-lrn # phases 1-2, pq_lut_gather, lrn_fused
+    python3 chip_smoke.py --only-int8    # phases 1-2, the f32 conv check, 8
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
@@ -13,10 +14,13 @@
 
 Phases, each fatal on failure (any exception exits non-zero):
 
-1. device: needs CUDA; prints the card's name and power limit; TF32 off.
+1. device: needs CUDA; prints the card's name and power limit. torch's
+   TF32 switches stay at their defaults: the package sets what it needs.
 2. build: compiles the kernels in qcnn_tpu_torch/csrc with nvcc for sm_90a
    and prints what ptxas reports for each kernel (registers, shared memory,
-   spills, warnings) under the kernel's name.
+   spills, warnings) under the kernel's name. Then one float32 conv_dense
+   (AlexNet conv2's geometry, B=8) under those defaults against float64:
+   the package's f32 convs must not run in TF32.
 3. kernels vs plain versions at every geometry of the main paths:
    pq_fc_fused at AlexNet fc6-8 (B=256, 3, 64 and 1024, both decode names)
    and pq_conv_fused at ResNet-50's two fused geometries (B=64 and B=1),
@@ -27,8 +31,9 @@ Phases, each fatal on failure (any exception exits non-zero):
    a multiple of 16, K=256, K not a multiple of 4), each launched twice
    with equal bits. pq_decode bit-exact in bf16 and f32 under its plan and
    under the general plan (AlexNet conv1-5 and fc6-8, every PQ weight of
-   ResNet-50), and the grouped launch bit-equal to per-item launches
-   (AlexNet's five convs, block 0 of each ResNet-50 stage, 20 items).
+   ResNet-50, fc6's geometry at K = 256), and the grouped launch
+   bit-equal to per-item launches (AlexNet's five convs, block 0 of each
+   ResNet-50 stage, 20 items).
    pq_lut_gather at fc6-8 for B = 1, 2 (the route's), 3 and 17 (batch
    tiles of 4 and 8 rows), all of which must plan the staged kernel, each
    launched twice with equal bits and held bit for bit to split_sum_plain
@@ -72,6 +77,20 @@ Phases, each fatal on failure (any exception exits non-zero):
    at the head of each of the 16 blocks for its other PQ convs, and the fc
    head); decode at load launches no kernel. No path launches a general
    kernel.
+8. int8. What torch._int_mm (cuBLASLt's int8 GEMM) takes is logged, and
+   that it takes a weight's column-major view without a copy is held.
+   AlexNet is calibrated as bench.py does (one bf16 pass over 32 images,
+   margin 1.0). Every AlexNet conv and fc geometry with its int8 weights,
+   at B=256 and B=1: the im2col + int8 GEMM int32 sums must be the bits of
+   the float64 plain version; then the sums' time (im2col and GEMM apart),
+   the int8 layer's as the forward runs it, cuDNN / cuBLAS in bf16 on the
+   same shape, the plain version and the bound (int8 at 1,979 TOP/s).
+   Then AlexNet int8 'auto' (no kernel) and int8 convs with
+   fc_impl='memory' (pq_fc_fused 3 a forward at B=256, pq_lut_gather 3 at
+   B=1) at B=256 and B=1, and ResNet-50 int8 decode at load (dynamic
+   scales, no kernel) at B=64 and B=1, each through the same loops,
+   profile and launch checks as phase 5, and each held to its bf16
+   counterpart's logits.
 
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
@@ -89,11 +108,21 @@ Limits (the script fails past them):
   the CPU (B=16, seed 0). The random net gives every row the same top class
   with a margin of about half its probability, so top-1 is the weak check
   and |dprob| the strong one.
+- f32 conv_dense against float64: 1e-5 of the largest |output| (measured
+  1.5e-6 on an H100; cuDNN in TF32 on the same inputs 2.9e-4).
+- int8 against bf16 (AlexNet int8 against bf16 auto, ResNet-50 int8 against
+  bf16 decode at load, same inputs): max |dlogit| <= 5e-2 of the largest
+  |logit| and top-1 equal on >= 95 % of rows. Per-tensor int8 activations
+  and per-channel int8 weights round every layer's operands to 1/254 of
+  their range. Measured on an H100 80GB HBM3 at 700 W: AlexNet auto
+  3.40e-2 (B=256) and 3.42e-2 (B=1), with fc memory 2.72e-2 and 1.83e-2;
+  ResNet-50 2.39e-2 (B=64) and 2.06e-2 (B=1); top-1 agreement 1.0 in every
+  run.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
-neither; with --only-fused, --only-gather, --only-lut-lrn or
---gather-times it stops early and prints neither.
+neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8
+or --gather-times it stops early and prints neither.
 """
 
 from __future__ import annotations
@@ -111,8 +140,10 @@ import torch
 # Published dense peaks (NVIDIA data sheets, SXM parts): bytes/s of device
 # memory and operations/s by type.
 PEAKS = {
-    "H100": {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12},
-    "H200": {"bytes": 4.8e12, "bf16": 989e12, "f32": 67e12},
+    "H100": {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12,
+             "int8": 1979e12},
+    "H200": {"bytes": 4.8e12, "bf16": 989e12, "f32": 67e12,
+             "int8": 1979e12},
 }
 ALEXNET_CONVS = ("conv1", "conv2", "conv3", "conv4", "conv5")
 ALEXNET_FCS = ("fc6", "fc7", "fc8")
@@ -665,6 +696,10 @@ def phase_gather_kernels(spec, geo, rparams, dev, flush, peaks):
     r50 = resnet50_decode_items(rparams)
     for name, item in r50.items():
         exact(f"resnet50 {name}", item)
+    # K = 256 (uint8 ids: memory mode past K = 128), at fc6's geometry
+    exact("fc6 K=256", (gen.standard_normal((2304, 256, 4)),
+                        gen.integers(0, 256, (4096, 2304), dtype=np.uint8),
+                        9216))
 
     def group_case(label, items):
         """The grouped launch against per-item launches: equal bits, then
@@ -1349,6 +1384,302 @@ def phase_resnet(dev, gpu_name):
     return counts
 
 
+def check_f32_conv(dev) -> None:
+    """A float32 conv_dense with cuDNN's TF32 switch left at torch's default
+    against the same conv in float64: the package turns TF32 off for its f32
+    convs itself. A direct F.conv2d under the same globals is logged beside
+    it, to show what the check would catch."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.ops.conv import conv_dense
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn((8, 27, 27, 96), generator=gen, device=dev)
+    k = torch.randn((5, 5, 48, 256), generator=gen, device=dev)
+    bias = torch.zeros(256, device=dev)
+    kw = dict(stride=1, padding=2, groups=2)
+    want = F.conv2d(x.double().permute(0, 3, 1, 2),
+                    k.double().permute(3, 2, 0, 1), **kw).permute(0, 2, 3, 1)
+    got = conv_dense(x, k, bias, stride=1, pad=2, groups=2)
+    direct = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                      **kw).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got.double() - want).abs().max().item() / scale
+    err_direct = (direct.double() - want).abs().max().item() / scale
+    log(f"check conv_dense f32 (8,27,27,96) 5x5 groups=2 against f64: "
+        f"rel_err={err:.3e} (limit 1e-5); F.conv2d with the same globals "
+        f"rel_err={err_direct:.3e}; cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} (torch's default)")
+    if not err <= 1e-5:
+        raise AssertionError(f"conv_dense f32: rel err {err} against f64")
+
+
+def int8_gemm_probe(dev) -> None:
+    """What torch._int_mm (cuBLASLt's int8 GEMM) takes on this card and
+    torch, logged; and that a column-major second operand (the (Cin, Cout)
+    view of an int8 weight's (Cout, Cin) memory) is taken without a copy:
+    the call's allocations past the output are held under 1 MB."""
+    for label, (m, k, n) in {"M=16": (16, 32, 32), "M=17": (17, 32, 32),
+                             "K=12": (32, 12, 32), "N=12": (32, 32, 12),
+                             "M=1": (1, 32, 32)}.items():
+        a = torch.ones((m, k), dtype=torch.int8, device=dev)
+        b = torch.ones((n, k), dtype=torch.int8, device=dev).t()
+        try:
+            torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            verdict = "taken"
+        except RuntimeError as e:
+            verdict = f"refused: {str(e).splitlines()[0][:120]}"
+        log(f"probe torch._int_mm {label} (M, K, N)={(m, k, n)}: {verdict}")
+    a = torch.ones((256, 9216), dtype=torch.int8, device=dev)
+    w = torch.ones((4096, 9216), dtype=torch.int8, device=dev)
+    for label, b in (("column-major", w.t()), ("row-major", w.t().contiguous())):
+        torch._int_mm(a, b)  # the GEMM's workspace is made on first use
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = torch._int_mm(a, b)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before - out.numel() * 4
+        log(f"probe torch._int_mm fc6 B=256 {label} second operand: "
+            f"allocated past the output {extra} bytes")
+        if label == "column-major" and extra > 1 << 20:
+            raise AssertionError("torch._int_mm copied the column-major "
+                                 f"weight ({extra} bytes)")
+        del out
+
+
+def phase_int8_layers(spec, params, scales, dev, peaks) -> None:
+    """Phase 8a: every AlexNet conv and fc geometry with its int8 weights,
+    at B=256 and B=1. The im2col + int8 GEMM int32 sums must be the bits of
+    the float64 plain version (F.conv2d or matmul on widened codes); then
+    the times: the sums (im2col and GEMM apart), the whole int8 layer as the
+    forward runs it (quantize or codes in, sums, epilogue), cuDNN / cuBLAS
+    in bf16 on the same shape, the plain version and the bound."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.core import ConvSpec
+    from qcnn_tpu_torch.models import prepare
+    from qcnn_tpu_torch.ops import conv as conv_ops
+    from qcnn_tpu_torch.ops import fc as fc_ops
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    geo = alexnet_geometry(spec, params)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    for b in (256, 1):
+        prepared, _, _ = prepare.prepare_params(
+            spec, params, batch_hint=b, dtype=torch.int8, act_scales=scales,
+            device=dev)
+        shapes = spec.feature_shapes(batch=b)
+        totals = dict(sums=0.0, layer=0.0, bf16=0.0, bound=0.0)
+        codes_in = False  # the previous conv/fc emitted int8 codes
+        for name in ALEXNET_CONVS + ALEXNET_FCS:
+            i, layer, _ = geo[name]
+            p = prepared[i]
+            shape = shapes[i] if isinstance(layer, ConvSpec) else (
+                b, int(np.prod(shapes[i][1:])))
+            xq = torch.randint(-127, 128, shape, dtype=torch.int8,
+                               device=dev, generator=gen)
+            xb = torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+            x_in = xq if codes_in else xb
+            codes_in = "out_scale" in p
+            epilogue = dict(act_scale=p.get("act_scale"),
+                            out_scale=p.get("out_scale"))
+            if isinstance(layer, ConvSpec):
+                kq = p["kernel_q"]
+                kh, kw, cg, cout = kq.shape
+                geom = dict(stride=layer.stride, pad=layer.pad,
+                            groups=layer.groups)
+                k = kh * kw * cg
+                k_pad = fc_ops.padded_k(k)
+                got = conv_ops.conv_int8_sums(xq, kq, **geom)
+                want = conv_ops.conv_int8_sums_plain(xq, kq, **geom)
+                cols, (_, ho, wo) = conv_ops.im2col_int8(
+                    xq, kh, kw, k_pad=k_pad, **geom)
+                step = cout // layer.groups
+                wmat = conv_ops.int8_kernel_matrix(kq)
+                mats = [fc_ops.pad_k_columns(wmat[:, g * step:(g + 1) * step],
+                                             k_pad)
+                        for g in range(layer.groups)]
+                m = b * ho * wo
+                sums = time_ms(lambda: conv_ops.conv_int8_sums(xq, kq, **geom),
+                               flush)
+                im2col = time_ms(lambda: conv_ops.im2col_int8(
+                    xq, kh, kw, k_pad=k_pad, **geom), flush)
+                gemm = time_ms(lambda: [fc_ops.int8_matmul(cols[g], mats[g])
+                                        for g in range(layer.groups)], flush)
+                layer_ms = time_ms(lambda: conv_ops.conv_dense_int8(
+                    x_in, kq, p["scale"], p["bias"], **geom, **epilogue),
+                    flush)
+                wb = kq.permute(3, 0, 1, 2).to(torch.bfloat16).contiguous()
+                xn, wn = xb.permute(0, 3, 1, 2), wb.permute(0, 3, 1, 2)
+                bf16 = time_ms(lambda: F.conv2d(
+                    xn, wn, stride=layer.stride, padding=layer.pad,
+                    groups=layer.groups), flush)
+                plain = time_ms(lambda: conv_ops.conv_int8_sums_plain(
+                    xq, kq, **geom), flush, reps=3)
+                split = (f" im2col_ms={im2col:.5f} gemm_ms={gemm:.5f} "
+                         f"im2col_bytes={cols.numel()}")
+                del cols, mats
+            else:
+                wq = p["weight_q"]
+                k, cout = wq.shape
+                m = b
+                got = fc_ops.int8_matmul(xq, wq)
+                want = fc_ops.int8_matmul_plain(xq, wq)
+                sums = time_ms(lambda: fc_ops.int8_matmul(xq, wq), flush)
+                layer_ms = time_ms(lambda: fc_ops.fc_dense_int8(
+                    x_in, wq, p["scale"], p["bias"], **epilogue), flush)
+                wb = wq.t().to(torch.bfloat16).contiguous().t()
+                bf16 = time_ms(lambda: torch.matmul(xb, wb), flush)
+                plain = time_ms(lambda: fc_ops.int8_matmul_plain(xq, wq),
+                                flush, reps=3)
+                split = ""
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8 {name} B={b}: the int32 sums "
+                                     "differ from the float64 plain version")
+            nbytes = xq.numel() + k * cout + m * cout * 4
+            ops = 2 * m * k * cout
+            b_ms, by = bound(nbytes, ops, peaks["int8"], peaks)
+            for key, v in (("sums", sums), ("layer", layer_ms),
+                           ("bf16", bf16), ("bound", b_ms)):
+                totals[key] += v
+            log(f"time int8 {name} B={b} M={m} K={k} N={cout} "
+                f"groups={getattr(layer, 'groups', 1)} input="
+                f"{'codes' if x_in is xq else 'bf16'} "
+                f"out={'codes' if codes_in else 'float'} sums bit-equal to "
+                f"plain; sums_ms={sums:.5f}{split} layer_ms={layer_ms:.5f} "
+                f"bf16_library_ms={bf16:.5f} plain_ms={plain:.5f} "
+                f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, "
+                f"ops {ops})")
+        log(f"time int8 alexnet conv1-5+fc6-8 B={b}: sums_ms="
+            f"{totals['sums']:.5f} layer_ms={totals['layer']:.5f} "
+            f"bf16_library_ms={totals['bf16']:.5f} "
+            f"bound_ms={totals['bound']:.5f}")
+        del prepared
+
+
+def agree_logits(label: str, ref: torch.Tensor, got: torch.Tensor,
+                 max_rel: float, min_top1: float) -> str:
+    """Logs how far got's logits lie from ref's; returns what breaks the
+    limits ('' when none does)."""
+    ref, got = ref.float(), got.float()
+    rel = ((ref - got).abs().max() / ref.abs().max()).item()
+    top1 = (ref.argmax(1) == got.argmax(1)).float().mean().item()
+    log(f"e2e {label}: max|dlogit|/max|logit|={rel:.3e} "
+        f"top1_agreement={top1:.4f} (limits {max_rel}, {min_top1})")
+    if rel <= max_rel and top1 >= min_top1:
+        return ""
+    return (f"{label}: max|dlogit| {rel} of the largest (limit {max_rel}), "
+            f"top-1 agreement {top1} (limit {min_top1})")
+
+
+# int8 against bf16 (phase 8): max |dlogit| over the largest |logit|, and
+# the share of rows whose top-1 agrees
+INT8_ALEXNET_LIMITS = (5e-2, 0.95)
+INT8_RESNET_LIMITS = (5e-2, 0.95)
+
+
+def phase_int8(spec, params, rparams, dev, peaks, gpu_name):
+    """Phase 8: int8 on the card. Calibration as bench.py does it, the
+    layer check (phase_int8_layers), AlexNet int8 'auto' and int8 convs with
+    fc_impl='memory' at B=256 and B=1, ResNet-50 int8 decode at load at B=64
+    and B=1; each run through drive() and held to its bf16 counterpart.
+    Returns the launch counts of the AlexNet int8 memory path."""
+    from qcnn_tpu_torch.models import (
+        calibrate,
+        common,
+        network,
+        prepare,
+        resnet,
+        synth,
+    )
+
+    int8_gemm_probe(dev)
+    t0 = time.perf_counter()
+    pb, cb, fb = prepare.prepare_params(spec, params, batch_hint=256,
+                                        dtype=torch.bfloat16, device=dev)
+    scales = calibrate.calibrate_act_scales(
+        spec, pb, synth.random_input(spec, 32, seed=3), conv_impls=cb,
+        fc_impls=fb, device=dev)
+    log(f"int8 calibration (bf16, 32 images, margin 1.0) seconds="
+        f"{time.perf_counter() - t0:.2f} act_scales="
+        f"{ {i: round(v, 6) for i, v in scales.items()} }")
+    phase_int8_layers(spec, params, scales, dev, peaks)
+
+    x_all = torch.from_numpy(synth.random_input(spec, 256, seed=1)).to(dev)
+    ref = {b: network.forward(pb, x_all[:b], spec=spec, conv_impls=cb,
+                              fc_impls=fb, compute_dtype=torch.bfloat16,
+                              with_softmax=False, device=dev)
+           for b in (256, 1)}
+    del pb
+    expect = {("auto", 256): {}, ("auto", 1): {},
+              ("memory", 256): {"pq_fc_fused": 3},
+              ("memory", 1): {"pq_lut_gather": 3}}
+    counts: dict = {}
+    failed = []  # every run is logged before a broken limit fails the phase
+    for (fc_mode, b), per_fwd in expect.items():
+        t0 = time.perf_counter()
+        prepared, conv_impls, fc_impls = prepare.prepare_params(
+            spec, params, batch_hint=b, fc_impl=fc_mode, dtype=torch.int8,
+            act_scales=scales, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        x = x_all[:b]
+
+        def fwd(with_softmax=True):
+            return network.forward(prepared, x, spec=spec,
+                                   conv_impls=conv_impls, fc_impls=fc_impls,
+                                   compute_dtype=torch.bfloat16,
+                                   with_softmax=with_softmax, device=dev)
+
+        label = (f"alexnet int8 {fc_mode} B={b} "
+                 f"fc_impls={sorted(set(fc_impls) - {'-'})}")
+        _, run_counts = drive(label, fwd, b, spec.num_classes,
+                              steps=10 if b > 1 else 50, per_fwd=per_fwd,
+                              gpu_name=gpu_name,
+                              resident=tensor_bytes(prepared), prep_s=prep_s)
+        if fc_mode == "memory":
+            add_counts(counts, run_counts)
+        failed.append(agree_logits(f"{label} vs bf16 auto", ref[b],
+                                   fwd(False), *INT8_ALEXNET_LIMITS))
+        del prepared
+
+    rspec = resnet.resnet50()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x_all = torch.randn((64, rspec.in_size, rspec.in_size, 3), generator=gen,
+                        device=dev)
+    logits = {}
+    for dtype in (torch.bfloat16, torch.int8):
+        t0 = time.perf_counter()
+        prepared, fwd_fn, act = common.build_family_forward(
+            "resnet", rspec, rparams, compute_dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        for b in (64, 1):
+            x = x_all[:b]
+            if dtype == torch.int8:
+                drive(f"resnet50 int8 decode B={b}",
+                      lambda: fwd_fn(prepared, x), b, rspec.num_classes,
+                      steps=10 if b > 1 else 30, per_fwd={},
+                      gpu_name=gpu_name, resident=tensor_bytes(prepared),
+                      prep_s=prep_s)
+            logits[(dtype, b)] = resnet.forward(
+                prepared, x, spec=rspec, compute_dtype=act, device=dev)
+        del prepared
+    for b in (64, 1):
+        failed.append(agree_logits(
+            f"resnet50 int8 decode B={b} vs bf16 decode",
+            logits[(torch.bfloat16, b)], logits[(torch.int8, b)],
+            *INT8_RESNET_LIMITS))
+    if any(failed):
+        raise AssertionError("; ".join(f for f in failed if f))
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(
         description="Chip smoke of the PyTorch + CUDA port on one card.")
@@ -1361,6 +1692,9 @@ def main() -> int:
     only.add_argument("--only-lut-lrn", action="store_true",
                       help="stop after the build, pq_lut_gather and "
                            "lrn_fused")
+    only.add_argument("--only-int8", action="store_true",
+                      help="stop after the build, the f32 conv check and "
+                           "phase 8 (int8)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
@@ -1393,8 +1727,6 @@ def main() -> int:
     log(f"device {gpu_name} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda} "
         f"peaks={peaks}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     # phase 2: build
     path, build_s, build_log = _build.build()
@@ -1409,6 +1741,7 @@ def main() -> int:
     if args.gather_times:
         phase_gather_times(geo, spec, dev, flush)
         return 0
+    check_f32_conv(dev)
     if args.only_lut_lrn:
         rows = phase_kernels(geo, spec, dev, flush, peaks)
         rows |= phase_other_kernels(spec, geo, dev, flush, peaks)[0]
@@ -1417,6 +1750,10 @@ def main() -> int:
                         "rows": rows}))
         return 0
     rparams = synth.random_resnet_pq_params(resnet.resnet50(), seed=0)
+    if args.only_int8:
+        counts = phase_int8(spec, params, rparams, dev, peaks, gpu_name)
+        log(json.dumps({"partial": "int8 only", "launches": counts}))
+        return 0
     if args.only_gather:
         rows = phase_gather_kernels(spec, geo, rparams, dev, flush, peaks)
         log(json.dumps({"partial": "gather kernels only", "rows": rows}))
@@ -1440,12 +1777,15 @@ def main() -> int:
     # phases 5-7: the paths, end to end
     counts = phase_end_to_end(spec, params, dev, gpu_name)
     counts["resnet50 memory"] = phase_resnet(dev, gpu_name)
+    # phase 8: int8
+    counts["alexnet int8 memory"] = phase_int8(spec, params, rparams, dev,
+                                               peaks, gpu_name)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
     owners = {  # the paths that own each kernel
         "pq_decode": ("alexnet memory", "resnet50 memory"),
-        "pq_lut_gather": ("alexnet memory",),
-        "pq_fc_fused": ("alexnet memory",),
+        "pq_lut_gather": ("alexnet memory", "alexnet int8 memory"),
+        "pq_fc_fused": ("alexnet memory", "alexnet int8 memory"),
         "lrn_fused": ("lrn_fused entry point",),
         "pq_conv_fused": ("resnet50 memory",),
         "pq_fc": ("alexnet pallas",),

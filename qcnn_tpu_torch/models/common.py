@@ -4,7 +4,7 @@ same rules as ``qcnn_tpu/models/common.py``.
 The port resolves memory mode exactly as the JAX package does, so both run
 the same program for the same model and batch. The thresholds below were
 measured on a TPU (qcnn_tpu/models/common.py:20-66) and are not facts about
-the H100: re-deriving them on the card is queued in ROADMAP.md A7.
+the H100: re-deriving them on the card is queued in ROADMAP.md A7b.
 
 MEMORY_IMPL is the PQ conv strategy of the families (ResNet) when their
 params still carry codebooks: "memory_fused" runs the fused decode-conv
@@ -21,6 +21,7 @@ import importlib
 import torch
 
 from qcnn_tpu_torch._device import default_dtype, resolve_device
+from qcnn_tpu_torch.models import prepare
 
 MEMORY_IMPL = "memory_fused"
 MEMORY_FC_IMPL = "auto"
@@ -80,11 +81,13 @@ def make_cast(compute_dtype):
 def build_family_forward(family, spec, params, *, memory=False,
                          compute_dtype=None, device=None):
     """The family wiring of the serving and eval surfaces: compute-dtype
-    default, prepare, and the softmax-emitting partial forward.
+    default, the int8 -> bf16 activation rule, prepare, and the
+    softmax-emitting partial forward (qcnn_tpu/models/common.py:131-147).
 
     family: a registry name ('resnet') or the module itself.
-    compute_dtype: None means bf16 on the card and f32 on the CPU; int8 is
-      not ported yet (ROADMAP.md A7).
+    compute_dtype: torch.float32, torch.bfloat16 or torch.int8 (int8
+      weights, bf16 activations); None means bf16 on the card and f32 on
+      the CPU, as the JAX package picks bf16 on its accelerator.
     device: None means "cuda"; pass "cpu" to run the plain versions.
     Returns (prepared_params, forward_fn(params, x), act_dtype)."""
     if isinstance(family, str):
@@ -98,13 +101,10 @@ def build_family_forward(family, spec, params, *, memory=False,
     device = resolve_device(device)
     if compute_dtype is None:
         compute_dtype = default_dtype(device)
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"compute dtype {compute_dtype} is not ported yet: only float32 "
-            "and bfloat16 are (int8: ROADMAP.md A7)")
+    act_dtype = prepare.act_dtype_for(compute_dtype)
     prepared = family.prepare_params(spec, params, dtype=compute_dtype,
                                      memory=memory, device=device)
     fwd = functools.partial(family.forward, spec=spec,
-                            compute_dtype=compute_dtype, with_softmax=True,
+                            compute_dtype=act_dtype, with_softmax=True,
                             device=device)
-    return prepared, fwd, compute_dtype
+    return prepared, fwd, act_dtype

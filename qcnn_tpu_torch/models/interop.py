@@ -4,8 +4,9 @@
 PQ or as ``qcnn_tpu.models.prepare.prepare_params`` returns them — into the
 port's; ``family_params_from_jax`` does the same for the nested dict of a
 model family (``qcnn_tpu.models.resnet.prepare_params`` or
-``quantize_params``). Neither imports JAX or ml_dtypes: a bfloat16 NumPy
-array is recognised by its dtype's name and moved as its 16 bits.
+``quantize_params``), int8 ones included. Neither imports JAX or
+ml_dtypes: a bfloat16 NumPy array is recognised by its dtype's name and
+moved as its 16 bits.
 """
 
 from __future__ import annotations
@@ -16,9 +17,14 @@ import numpy as np
 import torch
 
 from qcnn_tpu_torch._device import resolve_device
-from qcnn_tpu_torch.models.prepare import conv_kernel_tensor, fc_weight_tensor
+from qcnn_tpu_torch.models.prepare import (
+    conv_kernel_tensor,
+    fc_weight_tensor,
+    int8_conv_kernel_tensor,
+    int8_rows_tensor,
+)
 
-_INT8_KEYS = ("kernel_q", "weight_q", "scale", "act_scale", "out_scale")
+_SCALE_KEYS = ("scale", "act_scale", "out_scale")
 
 
 def array_to_tensor(arr, device) -> torch.Tensor:
@@ -35,14 +41,22 @@ def _layer_from_jax(p: dict, device: torch.device) -> dict:
     """One layer dict: PQ arrays keep their dtype (assignments uint8, OPQ
     perm as int64); a dense HWIO conv kernel comes across in the port's
     layout (OHWI memory, HWIO view) and a (Cin, Cout) fc weight as the
-    (Cin, Cout) view of (Cout, Cin) memory."""
-    if any(key in p for key in _INT8_KEYS):
-        raise NotImplementedError(
-            "int8 params are not ported yet: ROADMAP.md A7")
+    (Cin, Cout) view of (Cout, Cin) memory. int8 kernels and weights
+    (``kernel_q``, ``weight_q``) take the same memory with the int8 GEMM's
+    row padding (``models.prepare.int8_rows_tensor``); their scales come
+    across as float32, ``act_scale`` and ``out_scale`` as scalars."""
     q = {}
     for key, v in p.items():
+        if key in _SCALE_KEYS:
+            q[key] = torch.as_tensor(np.asarray(v, np.float32),
+                                     device=device)
+            continue
         t = array_to_tensor(v, "cpu")
-        if key == "kernel":
+        if key == "kernel_q":
+            q[key] = int8_conv_kernel_tensor(t.permute(3, 0, 1, 2), device)
+        elif key == "weight_q":
+            q[key] = int8_rows_tensor(t.t(), device).t()
+        elif key == "kernel":
             q[key] = conv_kernel_tensor(t.permute(3, 0, 1, 2), t.dtype,
                                         device)
         elif key == "weight":

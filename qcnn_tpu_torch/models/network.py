@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from qcnn_tpu_torch._device import default_dtype, resolve_device
+from qcnn_tpu_torch._device import resolve_device
 from qcnn_tpu_torch.core import (
     ConvSpec,
     DropoutSpec,
@@ -31,8 +31,13 @@ from qcnn_tpu_torch.core import (
     is_pq,
 )
 from qcnn_tpu_torch.models import common
-from qcnn_tpu_torch.ops.conv import conv_dense, instep_decodes, pq_conv
-from qcnn_tpu_torch.ops.fc import fc_dense, pq_fc
+from qcnn_tpu_torch.ops.conv import (
+    conv_dense,
+    conv_dense_int8,
+    instep_decodes,
+    pq_conv,
+)
+from qcnn_tpu_torch.ops.fc import fc_dense, fc_dense_int8, pq_fc
 from qcnn_tpu_torch.ops.misc import (
     caffe_max_pool,
     dropout_inference,
@@ -43,7 +48,8 @@ from qcnn_tpu_torch.ops.misc import (
 
 # The request-level strategy vocabulary of the JAX package
 # (qcnn_tpu/models/network.py:59-63). resolve_strategy accepts all of it;
-# the ops raise NotImplementedError for the names the port has not ported.
+# ops.conv raises NotImplementedError for the conv names the port has not
+# ported.
 CONV_IMPLS = ("auto", "decode", "indecode", "indecode_ohwi", "indecode_hwoi",
               "gdecode", "gdecode_iohw", "gemm", "lut", "memory",
               "fusedconv", "memory_fused", "fc1x1")
@@ -134,11 +140,16 @@ def forward(
     """Run the full forward pass.
 
     Args:
-      params: one entry per layer; dict for conv/fc (PQ or dense), None for
-        parameter-free layers (``prepare_params`` output, or raw params).
+      params: one entry per layer; dict for conv/fc (PQ, dense, or int8
+        with ``kernel_q`` / ``weight_q``), None for parameter-free layers
+        (``prepare_params`` output, or raw params).
       x: (B, H, W, C) NHWC activations (tensor or NumPy array).
-      compute_dtype: activation dtype between layers; None means bf16 on
-        the card and f32 on the CPU. Sums and the softmax stay float32.
+      compute_dtype: activation dtype between layers (bf16 for int8
+        params, ``prepare.act_dtype_for``); None keeps x's dtype and
+        resolves strategies as float32, as the JAX package does. Sums and
+        the softmax stay float32. int8 layers take and may emit int8 codes
+        (their ``out_scale``), which relu, pool, dropout and flatten pass
+        on as codes.
       conv_impls/fc_impls: pre-resolved per-layer strategies (from
         models.prepare.prepare_params); override conv_impl/fc_impl.
       collect_act_amax: also return {layer_index: amax(|input|)} for every
@@ -151,8 +162,6 @@ def forward(
       with_softmax=False); with collect_act_amax, a (probs, amax_dict).
     """
     device = resolve_device(device)
-    if compute_dtype is None:
-        compute_dtype = default_dtype(device)
     x = torch.as_tensor(x, device=device)
     if x.ndim != 4:
         raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
@@ -160,10 +169,13 @@ def forward(
         # resolve only the missing side — a caller passing one pre-resolved
         # tuple must not have it silently discarded
         conv_r, fc_r = resolve_strategy(
-            spec, params, x.shape[0], conv_impl, fc_impl, dtype=compute_dtype)
+            spec, params, x.shape[0], conv_impl, fc_impl,
+            dtype=(compute_dtype if compute_dtype is not None
+                   else torch.float32))
         conv_impls = conv_impls if conv_impls is not None else conv_r
         fc_impls = fc_impls if fc_impls is not None else fc_r
-    x = x.to(compute_dtype)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
 
     act_amax: dict[int, torch.Tensor] = {}
 
@@ -187,10 +199,14 @@ def forward(
         p = pq_convs[i][0] if i in pq_convs else _to_device(p, device)
         if isinstance(layer, ConvSpec):
             record_amax(i, x)
-            if conv_impls[i] == "dense":
-                if "kernel_q" in p:
-                    raise NotImplementedError(
-                        "int8 conv layers are not ported yet: ROADMAP.md A7")
+            if conv_impls[i] == "dense" and "kernel_q" in p:
+                x = conv_dense_int8(
+                    x, p["kernel_q"], p["scale"], p["bias"],
+                    stride=layer.stride, pad=layer.pad, groups=layer.groups,
+                    act_scale=p.get("act_scale"),
+                    out_scale=p.get("out_scale"),
+                )
+            elif conv_impls[i] == "dense":
                 x = conv_dense(
                     x, p["kernel"], p["bias"], stride=layer.stride,
                     pad=layer.pad, groups=layer.groups,
@@ -202,7 +218,8 @@ def forward(
                     groups=layer.groups, impl=conv_impls[i],
                     out_dtype=compute_dtype, decoded=decoded.get(i),
                 )
-            x = x.to(compute_dtype)
+            if compute_dtype is not None and x.dtype != torch.int8:
+                x = x.to(compute_dtype)
         elif isinstance(layer, PoolSpec):
             x = caffe_max_pool(
                 x, kernel=layer.kernel, stride=layer.stride, pad=layer.pad
@@ -215,15 +232,17 @@ def forward(
             else:
                 x = x.reshape(x.shape[0], -1)
             record_amax(i, x)
-            if fc_impls[i] == "dense":
-                if "weight_q" in p:
-                    raise NotImplementedError(
-                        "int8 fc layers are not ported yet: ROADMAP.md A7")
+            if fc_impls[i] == "dense" and "weight_q" in p:
+                x = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
+                                  act_scale=p.get("act_scale"),
+                                  out_scale=p.get("out_scale"))
+            elif fc_impls[i] == "dense":
                 x = fc_dense(x, p["weight"], p["bias"],
                              out_dtype=compute_dtype)
             else:
                 x = pq_fc(x, p, impl=fc_impls[i], out_dtype=compute_dtype)
-            x = x.to(compute_dtype)
+            if compute_dtype is not None and x.dtype != torch.int8:
+                x = x.to(compute_dtype)
         elif isinstance(layer, ReLUSpec):
             x = relu(x)
         elif isinstance(layer, LRNSpec):
@@ -248,13 +267,17 @@ def make_forward_fn(
     conv_impl: str = "auto",
     fc_impl: str = "auto",
     with_softmax: bool = True,
+    donate_input: bool = False,
     compute_dtype=None,
     conv_impls: Optional[tuple[str, ...]] = None,
     fc_impls: Optional[tuple[str, ...]] = None,
     device=None,
 ):
     """A forward(params, x) closure for a fixed spec and strategy (PyTorch
-    runs eagerly; there is nothing to compile)."""
+    runs eagerly; there is nothing to compile). donate_input is taken for
+    the JAX package's signature and has no effect: the forward never
+    writes into x."""
+    del donate_input
     return functools.partial(
         forward,
         spec=spec,
@@ -269,6 +292,8 @@ def make_forward_fn(
 
 
 def top_k_labels(probs: torch.Tensor, k: int = 5) -> torch.Tensor:
-    """Top-k class indices per example, best first (CvtFeatMapToLablVec,
+    """Top-k class indices per example, best first and the lower index
+    first among equal values, as ``lax.top_k`` (CvtFeatMapToLablVec,
     CaffeEva.cc:1162-1190, without the destructive zero-out)."""
-    return torch.topk(probs, k, dim=-1).indices
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    return order[..., :k]

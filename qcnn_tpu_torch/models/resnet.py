@@ -10,7 +10,10 @@ FC. Activations are NHWC, as in the JAX package.
 In memory mode (``prepare_params(memory=True)``) the PQ convs run
 ``models.common.MEMORY_IMPL`` ("memory_fused": the ``pq_conv_fused`` kernel
 for qualifying 3x3 convs, the ``pq_decode`` kernel elsewhere) and the fc
-runs ``common.fc_memory_impl``.
+runs ``common.fc_memory_impl``. In int8 (``prepare_params(dtype=
+torch.int8)``) dense and decoded layers run the int8 conv and fc with the
+dynamic amax of each input, as the JAX package's families do; memory mode
+keeps bf16 codebooks there.
 """
 
 from __future__ import annotations
@@ -26,10 +29,9 @@ from qcnn_tpu_torch.models.common import make_cast as _make_cast
 from qcnn_tpu_torch.models.prepare import (
     _cast_pq,
     _decode_rows_np,
+    _is_int8,
     _np,
-    _tensor,
-    conv_kernel_tensor,
-    fc_weight_tensor,
+    dense_layer,
     inverse_permutation,
 )
 from qcnn_tpu_torch.ops import conv as conv_ops
@@ -143,8 +145,9 @@ def _apply_conv(x, p, *, stride=1, pad=0, out_dtype=None, impl=None,
                                 impl=impl or common.MEMORY_IMPL,
                                 out_dtype=out_dtype, decoded=decoded)
     if "kernel_q" in p:
-        raise NotImplementedError(
-            "int8 conv layers are not ported yet: ROADMAP.md A7")
+        return conv_ops.conv_dense_int8(
+            x, p["kernel_q"], p["scale"], p["bias"], stride=stride, pad=pad,
+            act_scale=p.get("act_scale"))
     return conv_ops.conv_dense(x, p["kernel"], p["bias"], stride=stride,
                                pad=pad, out_dtype=out_dtype)
 
@@ -154,8 +157,8 @@ def _apply_fc(x, p, out_dtype=None):
         return fc_ops.pq_fc(x, p, impl=common.fc_memory_impl(
             x.shape[0], p, x.dtype), out_dtype=out_dtype)
     if "weight_q" in p:
-        raise NotImplementedError(
-            "int8 fc layers are not ported yet: ROADMAP.md A7")
+        return fc_ops.fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
+                                    act_scale=p.get("act_scale"))
     return fc_ops.fc_dense(x, p["weight"], p["bias"], out_dtype=out_dtype)
 
 
@@ -326,55 +329,58 @@ def prepare_params(spec: ResNetSpec, params: dict, dtype=torch.bfloat16, *,
     assignments uint8 unchanged, bias float32, and the OPQ ``perm`` kept for
     the ops to apply; the forward then decodes in the step.
 
-    dtype: torch.float32 or torch.bfloat16 (int8: ROADMAP.md A7).
+    dtype: torch.float32, torch.bfloat16 or torch.int8. int8 quantizes
+      dense and decoded weights per output channel
+      (``models.prepare.dense_layer``, qcnn_tpu/models/resnet.py:304-326);
+      memory mode keeps bf16 codebooks under it.
     device: None means "cuda"; pass "cpu" to prepare for the CPU."""
     device = resolve_device(device)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"resnet.prepare_params(dtype={dtype}) is not ported yet: only "
-            "float32 and bfloat16 are (int8: ROADMAP.md A7)")
+    if not (_is_int8(dtype) or dtype in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"resnet.prepare_params: unsupported dtype {dtype}")
+    cb_dtype = torch.bfloat16 if _is_int8(dtype) else dtype
 
-    def dense(kind: str, w_rows: np.ndarray, bias) -> dict:
-        """w_rows: OHWI for a kernel, (Cout, Cin) for a weight."""
-        bias_t = _tensor(_np(bias).astype(np.float32), torch.float32, device)
-        if kind == "kernel":
-            return {"kernel": conv_kernel_tensor(w_rows, dtype, device),
-                    "bias": bias_t}
-        return {"weight": fc_weight_tensor(w_rows, dtype, device),
-                "bias": bias_t}
-
-    def prep(p: dict, cin: int, is_fc: bool) -> dict:
+    def prep(p: dict, cin, is_fc: bool) -> dict:
         if "codebooks" in p:
             if memory:
-                return _cast_pq(p, dtype, device)
+                return _cast_pq(p, cb_dtype, device)
             cb = _np(p["codebooks"]).astype(np.float32)
             asmt = _np(p["assignments"])
+            s, _, d = cb.shape
+            cin = cin or s * d
             if is_fc:
                 w = _decode_rows_np(cb, asmt, cin)  # (Cout, Cin)
                 if "perm" in p:
                     w = w[:, inverse_permutation(_np(p["perm"]))]
-                return dense("weight", w, p["bias"])
-            cout, kh, kw, s = asmt.shape
+                return dense_layer("weight", w, p["bias"], dtype, device)
+            cout, kh, kw, _ = asmt.shape
             w = _decode_rows_np(cb, asmt.reshape(-1, s), cin).reshape(
                 cout, kh, kw, cin)
             if "perm" in p:
                 w = w[..., inverse_permutation(_np(p["perm"]))]
-            return dense("kernel", w, p["bias"])
+            return dense_layer("kernel", w, p["bias"], dtype, device)
         if any(key in p for key in ("kernel_q", "weight_q")):
-            raise NotImplementedError(
-                "int8 layers are not ported yet: ROADMAP.md A7")
+            raise ValueError(
+                "resnet.prepare_params: these params are prepared int8 "
+                "already (models.interop.family_params_from_jax carries "
+                "JAX-prepared ones)")
         if "kernel" in p:
-            return dense("kernel", _np(p["kernel"]).transpose(3, 0, 1, 2),
-                         p["bias"])
-        return dense("weight", _np(p["weight"]).T, p["bias"])
+            return dense_layer("kernel",
+                               _np(p["kernel"]).transpose(3, 0, 1, 2),
+                               p["bias"], dtype, device)
+        return dense_layer("weight", _np(p["weight"]).T, p["bias"], dtype,
+                           device)
 
     cins = _conv_cin_map(spec)
     prepared: dict = {}
     for name, p in params.items():
-        if name in ("stem", "fc"):
-            prepared[name] = prep(p, cins[name], is_fc=name == "fc")
+        if name == "fc":
+            prepared[name] = prep(p, cins["fc"], is_fc=True)
+        elif "codebooks" in p or "kernel" in p:
+            # the stem, or any other bare top-level conv
+            prepared[name] = prep(p, cins.get(name), is_fc=False)
         else:  # a block
-            prepared[name] = {k: prep(v, cins[f"{name}.{k}"], is_fc=False)
+            prepared[name] = {k: prep(v, cins.get(f"{name}.{k}"),
+                                      is_fc=False)
                               for k, v in p.items()}
     return prepared
 

@@ -19,6 +19,15 @@ gather. ``decode`` is the plain PyTorch gather. ``fusedconv`` runs the
 ``pq_conv_fused`` kernel, ``fc1x1`` the ``pq_fc_fused`` kernel over the
 flattened pixels, and ``memory_fused`` picks one of them or the OHWI decode
 per layer (:func:`memory_fused_route`).
+
+Float32 convolutions run with TF32 off, whatever the caller's global
+setting: cuDNN's default would round f32 operands to TF32.
+
+The int8 conv (:func:`conv_dense_int8`) has no library convolution on the
+card (cuDNN takes no int8 conv through torch, and ``F.unfold`` no int8), so
+it is an im2col of the int8 codes, copied once, and the shared int8 GEMM
+(``ops.fc.int8_matmul``) once per group, as the JAX package leaves its
+int8 ``conv_general_dilated`` to XLA.
 """
 
 from __future__ import annotations
@@ -28,6 +37,15 @@ import torch.nn.functional as F
 
 from qcnn_tpu_torch.ops import lut as lut_ops
 from qcnn_tpu_torch.ops.cuda import pq_conv_fused, pq_decode, pq_fc_fused
+from qcnn_tpu_torch.ops.fc import (
+    INT_MM_MIN_ROWS,
+    check_gdecode_codewords,
+    int8_matmul,
+    pad_k_columns,
+    padded_k,
+    quantize_activations_int8,
+    requantize_int8,
+)
 
 _NOT_PORTED = {
     "lut": "ROADMAP.md A4 (the LUT + one-hot conv formulation)",
@@ -38,7 +56,7 @@ _NOT_PORTED = {
 # memory_fused's 1x1 reroute gates, copied from the JAX package
 # (qcnn_tpu/ops/conv.py:30-41). _FC1X1_MAX_ROWS = 0 keeps the reroute off,
 # as there: the rule was measured on a TPU (re-deriving it on the H100 is
-# queued in ROADMAP.md A7). The explicit impl "fc1x1" stays available.
+# queued in ROADMAP.md A7b). The explicit impl "fc1x1" stays available.
 _FC1X1_MIN_RATIO = 4
 _FC1X1_MAX_ROWS = 0
 
@@ -118,14 +136,111 @@ def conv_dense(
     w = kernel.permute(*(layout.index(c) for c in "OIHW"))
     xn = x.permute(0, 3, 1, 2)
     out_dtype = out_dtype or torch.float32
-    if out_dtype == kernel.dtype:
+    if out_dtype == kernel.dtype and kernel.dtype != torch.float32:
         y = F.conv2d(xn, w, stride=stride, padding=pad, groups=groups)
     else:
-        # widen exactly, sum in f32, round once
-        y = F.conv2d(xn.float(), w.float(), stride=stride, padding=pad,
-                     groups=groups).to(out_dtype)
+        # widen exactly, sum in f32 without TF32, round once
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            y = F.conv2d(xn.float(), w.float(), stride=stride, padding=pad,
+                         groups=groups).to(out_dtype)
     y = y + bias.to(out_dtype)[:, None, None]
     return y.permute(0, 2, 3, 1)
+
+
+def int8_kernel_matrix(kernel_q: torch.Tensor) -> torch.Tensor:
+    """The (K, Cout) operand of the int8 GEMM for an HWIO int8 kernel, K in
+    (kh, kw, Cg) order: a view when the kernel's memory is OHWI, as
+    ``models.prepare`` holds it (its rows may be padded for the GEMM), a
+    copy otherwise."""
+    kh, kw, cg, cout = kernel_q.shape
+    ohwi = kernel_q.permute(3, 0, 1, 2)
+    k = kh * kw * cg
+    row = ohwi.stride(0)
+    if ohwi.stride()[1:] == (kw * cg, cg, 1) and row >= k:
+        return ohwi.as_strided((k, cout), (1, row))
+    return ohwi.reshape(cout, k).t()
+
+
+def im2col_int8(xq: torch.Tensor, kh: int, kw: int, *, stride: int,
+                pad: int, groups: int, k_pad: int
+                ) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """(groups, rows, k_pad) int8 patches of NHWC codes and the output's
+    (B, Ho, Wo). Each row's taps are in (kh, kw, Cg) order, zero past K =
+    kh*kw*Cg and past the B*Ho*Wo real rows (rows = max(B*Ho*Wo,
+    INT_MM_MIN_ROWS): the int8 GEMM's smallest operands,
+    ``ops.fc.int8_matmul``). Built from ``Tensor.unfold`` views and copied
+    once."""
+    b, h, w, c = xq.shape
+    cg = c // groups
+    if pad:
+        xq = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (w + 2 * pad - kw) // stride + 1
+    k = kh * kw * cg
+    m = b * ho * wo
+    rows = max(m, INT_MM_MIN_ROWS)
+    # (B, Ho, Wo, C, kh, kw) -> (G, B, Ho, Wo, kh, kw, Cg)
+    patches = xq.unfold(1, kh, stride).unfold(2, kw, stride)
+    patches = patches.reshape(b, ho, wo, groups, cg, kh, kw).permute(
+        3, 0, 1, 2, 5, 6, 4)
+    out = torch.empty((groups, rows, k_pad), dtype=torch.int8,
+                      device=xq.device)
+    if k_pad > k:
+        out[:, :, k:].zero_()
+    if rows > m:
+        out[:, m:, :].zero_()
+    out[:, :m, :k].view(groups, b, ho, wo, kh, kw, cg).copy_(patches)
+    return out, (b, ho, wo)
+
+
+def conv_int8_sums(xq: torch.Tensor, kernel_q: torch.Tensor, *, stride: int,
+                   pad: int, groups: int = 1) -> torch.Tensor:
+    """int32 sums of an int8 conv: NHWC int8 codes, an HWIO int8 kernel ->
+    (B, Ho, Wo, Cout) int32. im2col, then one int8 GEMM a group."""
+    kh, kw, cg, cout = kernel_q.shape
+    wmat = int8_kernel_matrix(kernel_q)
+    k_pad = padded_k(kh * kw * cg)
+    cols, (b, ho, wo) = im2col_int8(xq, kh, kw, stride=stride, pad=pad,
+                                    groups=groups, k_pad=k_pad)
+    m = b * ho * wo
+    step = cout // groups
+    accs = [int8_matmul(cols[g],
+                        pad_k_columns(wmat[:, g * step:(g + 1) * step],
+                                      k_pad))[:m]
+            for g in range(groups)]
+    acc = accs[0] if groups == 1 else torch.cat(accs, dim=1)
+    return acc.reshape(b, ho, wo, cout)
+
+
+def conv_int8_sums_plain(xq: torch.Tensor, kernel_q: torch.Tensor, *,
+                         stride: int, pad: int, groups: int = 1
+                         ) -> torch.Tensor:
+    """:func:`conv_int8_sums` as one float64 convolution: exact (every sum
+    is an integer below 2^53), and a yardstick of the im2col path."""
+    y = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                 kernel_q.permute(3, 2, 0, 1).double(), stride=stride,
+                 padding=pad, groups=groups)
+    return y.to(torch.int32).permute(0, 2, 3, 1)
+
+
+def conv_dense_int8(x: torch.Tensor, kernel_q: torch.Tensor,
+                    k_scale: torch.Tensor, bias: torch.Tensor, *, stride: int,
+                    pad: int, groups: int = 1, act_scale=None,
+                    out_scale=None) -> torch.Tensor:
+    """int8 conv: kernel_q (kh, kw, Cg, Cout) int8 with per-Cout scales;
+    activations quantized with a static or dynamic scale
+    (``ops.fc.quantize_activations_int8``). Returns float32 values, or
+    with out_scale int8 codes in the consumer's calibrated scale
+    (``ops.fc.requantize_int8``, the int8-native dataflow)
+    (qcnn_tpu/ops/conv.py:206-236)."""
+    xq, x_scale = quantize_activations_int8(x, act_scale)
+    acc = conv_int8_sums(xq, kernel_q, stride=stride, pad=pad, groups=groups)
+    if out_scale is not None:
+        return requantize_int8(acc, x_scale, k_scale, bias, out_scale)
+    return acc.float() * (x_scale * k_scale) + bias
 
 
 def pq_conv_decode(
@@ -195,6 +310,8 @@ def pq_conv(
             f"pq_conv impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}")
     if impl not in _IMPLS:
         raise ValueError(f"unknown pq_conv impl: {impl}")
+    if impl in ("gdecode", "gdecode_iohw"):
+        check_gdecode_codewords(params["codebooks"])
     if "perm" in params:
         # OPQ channel permutation (quantizer/opq.py): codebooks are shared
         # across groups, so the same within-group permutation applies to

@@ -21,7 +21,7 @@ from the plain version's only in the order of float32 additions.
 The geometry gates (``supports``, ``fits_vmem`` and the sizes behind them)
 are copies of the JAX package's. They are TPU limits, kept so that both
 packages route the same layers; re-deriving them for Hopper is queued in
-ROADMAP.md A7.
+ROADMAP.md A7b.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches or the call raises.

@@ -25,7 +25,10 @@ from qcnn_tpu_torch.ops import lut
 from qcnn_tpu_torch.ops.cuda import _plan
 from qcnn_tpu_torch.ops.cuda._build import INT, PTR, Kernel, check_cuda
 
-MAX_CODEWORDS = 128  # the JAX kernel's one-vreg table (pq_decode.py:88-92)
+# uint8 ids. The JAX Pallas gather's one-vreg cap (K <= 128) stays only on
+# the 'gdecode' impl names (ops.fc.check_gdecode_codewords), whose JAX entry
+# points raise past it; the JAX one-hot decodes take any K.
+MAX_CODEWORDS = 256
 
 KERNEL = Kernel("pq_decode_launch", [PTR, INT, PTR])  # items, count, stream
 plan = _plan.plan_decode
@@ -46,8 +49,7 @@ def _check_item(codebooks: torch.Tensor, assignments: torch.Tensor,
     s, k, d = codebooks.shape
     if k > MAX_CODEWORDS:
         raise ValueError(
-            f"gather decode supports K <= {MAX_CODEWORDS} (one vreg of lanes); "
-            f"got K={k}"
+            f"pq_decode supports K <= {MAX_CODEWORDS} (uint8 ids); got K={k}"
         )
     if assignments.ndim != 2 or assignments.shape[1] != s:
         raise ValueError(f"subspace mismatch: codebooks S={s}, "

@@ -36,12 +36,21 @@ def caffe_max_pool(
     input is padded with -inf (``pad`` before, enough after for the last
     window) and pooled with the floor rule, as the JAX package's
     ``reduce_window`` does; ``ceil_mode=False`` gives the floor rule.
+
+    int8 activation codes (the int8-native dataflow) pool as codes: max
+    commutes with a monotone per-tensor quantization. They pool through
+    their bf16 values, which hold every code exactly; every window holds a
+    real pixel, so the -inf padding never wins and the result is the JAX
+    package's pool with the dtype minimum as identity
+    (qcnn_tpu/ops/misc.py:43-50).
     """
+    if x.dtype == torch.int8:
+        return caffe_max_pool(x.to(torch.bfloat16), kernel=kernel,
+                              stride=stride, pad=pad,
+                              ceil_mode=ceil_mode).to(torch.int8)
     if not torch.is_floating_point(x):
-        raise NotImplementedError(
-            "max pool on int8 activation codes belongs to the int8 path "
-            "(ROADMAP.md A7)"
-        )
+        raise ValueError(f"caffe_max_pool takes float values or int8 codes, "
+                         f"got {x.dtype}")
     _, h, w, _ = x.shape
     oh = _pool_out(h, kernel, stride, pad, ceil_mode)
     ow = _pool_out(w, kernel, stride, pad, ceil_mode)

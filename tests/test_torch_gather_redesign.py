@@ -259,8 +259,11 @@ def test_decode_conv_kernels_many_matches_jax(rng):
 
 def test_grouped_decode_guards(rng):
     (cb, ids, row_len), *_ = _decode_items(rng, torch.float32)
-    with pytest.raises(ValueError, match="K <= 128"):
-        pq_decode.decode_rows_many([(torch.zeros(1, 200, 8), ids, 3)])
+    # ids are uint8: any K up to 256 decodes, past it the items are refused
+    with pytest.raises(ValueError, match="K <= 256"):
+        pq_decode.decode_rows_many([(torch.zeros(1, 257, 8), ids, 3)])
+    (wide,) = pq_decode.decode_rows_many([(torch.ones(1, 200, 8), ids, 3)])
+    assert wide.shape == (ids.shape[0], 3) and bool((wide == 1).all())
     with pytest.raises(ValueError, match="subspace mismatch"):
         pq_decode.decode_rows_many([(torch.zeros(2, 16, 8), ids, 3)])
     with pytest.raises(ValueError, match="row length"):

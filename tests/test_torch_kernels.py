@@ -19,6 +19,8 @@ from qcnn_tpu.ops.pallas import (
     pq_fc_fused as j_fused,
     pq_fc_lut_gather as j_lut_gather,
 )
+from qcnn_tpu_torch.ops import fc as tfc
+from qcnn_tpu_torch.ops import lut as tlut
 from qcnn_tpu_torch.ops.cuda import (
     KERNELS,
     launches,
@@ -175,16 +177,21 @@ def test_guards_match_the_jax_entries(rng):
          lambda: pq_lut_gather.pq_fc_lut_gather(T(x), tp)),
         (lambda: j_fused(x, p, interpret=True),
          lambda: pq_fc_fused.pq_fc_fused(T(x), tp)),
+        # the JAX Pallas gather's cap stays on the port's 'gdecode' name
         (lambda: j_decode_fc(jnp.asarray(p["codebooks"]),
                              jnp.asarray(p["assignments"]), 32,
                              interpret=True),
-         lambda: pq_decode.decode_fc_weight_gather(tp["codebooks"],
-                                                   tp["assignments"], 32)),
+         lambda: tfc.pq_fc(T(x), tp, impl="gdecode")),
     ):
         with pytest.raises(ValueError, match="K <= 128"):
             jfn()
         with pytest.raises(ValueError, match="K <= 128"):
             tfn()
+    # the pq_decode kernel itself takes any uint8 id (K = 200 here)
+    np.testing.assert_array_equal(
+        pq_decode.decode_fc_weight_gather(tp["codebooks"], tp["assignments"],
+                                          32).numpy(),
+        tlut.decode_fc_weight(tp["codebooks"], tp["assignments"], 32).numpy())
 
 
 def test_fused_coverage_and_decode_guards(rng):

@@ -128,11 +128,17 @@ def test_logits_and_make_forward_fn():
 
 
 def test_top_k_labels():
+    """Ties (a saturated softmax has them) put the lower index first, as
+    lax.top_k does."""
     probs = np.array([[0.1, 0.5, 0.3, 0.05, 0.05],
-                      [0.6, 0.1, 0.05, 0.2, 0.05]], np.float32)
-    want = np.asarray(jnet.top_k_labels(probs, k=3))
-    got = tnet.top_k_labels(torch.from_numpy(probs), k=3)
-    np.testing.assert_array_equal(got.numpy(), want)
+                      [0.6, 0.1, 0.05, 0.2, 0.05],
+                      [0.2, 0.05, 0.2, 0.2, 0.35],
+                      [0.0, 1.0, 0.0, 0.0, 0.0]], np.float32)
+    for k in (3, 5):
+        want = np.asarray(jnet.top_k_labels(probs, k=k))
+        got = tnet.top_k_labels(torch.from_numpy(probs), k=k)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert got[2].tolist() == [4, 0, 2, 3, 1]
 
 
 @pytest.mark.parametrize("name", sorted(jzoo.MODELS))
@@ -161,14 +167,28 @@ def test_resolve_strategy_vocabulary():
 
 
 def test_unported_strategies_raise_not_implemented():
+    """The conv names still to port raise naming the ROADMAP; fc 'onehot'
+    and int8 are ported and give the JAX package's output (f32 within
+    1e-5; int8 with dynamic scales within 1e-2 of the largest |logit|,
+    measured 0)."""
     params = _params()
-    x = jsynth.random_input(JSPEC, batch=1, seed=0)
+    x = jsynth.random_input(JSPEC, batch=2, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tnet.forward(params, x, spec=TSPEC, conv_impl="lut", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tnet.forward(params, x, spec=TSPEC, fc_impl="onehot", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        tprepare(TSPEC, params, dtype=torch.int8, device="cpu")
+    want = jnet.forward(params, x, spec=JSPEC, fc_impl="onehot")
+    _close(tnet.forward(params, x, spec=TSPEC, fc_impl="onehot",
+                        device="cpu"), want)
+    pj, cj, fj = jprepare(JSPEC, params, dtype=jnp.int8)
+    pt, ct, ft = tprepare(TSPEC, params, dtype=torch.int8, device="cpu")
+    assert (ct, ft) == (cj, fj)
+    assert pt[0]["kernel_q"].dtype == torch.int8
+    want = np.asarray(jnet.forward(pj, x, spec=JSPEC, conv_impls=cj,
+                                   fc_impls=fj, compute_dtype=jnp.bfloat16,
+                                   with_softmax=False), np.float32)
+    got = tnet.forward(pt, x, spec=TSPEC, conv_impls=ct, fc_impls=ft,
+                       compute_dtype=torch.bfloat16, with_softmax=False,
+                       device="cpu")
+    _close(got, want, tol=1e-2 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("prepared_dtype", [None, "float32", "bfloat16"])
@@ -198,3 +218,113 @@ def test_params_from_jax(prepared_dtype):
             tp[0]["kernel"].float().numpy(),
             np.asarray(jp[0]["kernel"], np.float32))
         assert tp[4]["weight"].shape == jp[4]["weight"].shape
+
+
+# ---- the zoo's other five specs (full width, B=1) ---------------------------
+
+@pytest.mark.parametrize("name", ["caffenet", "vgg_cnn_s", "vgg16",
+                                  "caffenet_fgb", "caffenet_fgd"])
+def test_zoo_forward_matches_jax(name):
+    """f32 decode at load, logits within 1e-5 of the largest |logit|
+    (measured 2.2e-6 to 4.1e-6; vgg16 is the slowest case, about 7 s on
+    the CPU for both packages)."""
+    jspec, tspec = jzoo.get_model(name), tzoo.get_model(name)
+    params = jsynth.random_pq_params(jspec, seed=0)
+    x = jsynth.random_input(jspec, 1, seed=1)
+    pj, cj, fj = jprepare(jspec, params, dtype=jnp.float32)
+    want = np.asarray(jnet.forward(pj, x, spec=jspec, conv_impls=cj,
+                                   fc_impls=fj, compute_dtype=jnp.float32,
+                                   with_softmax=False))
+    pt, ct, ft = tprepare(tspec, params, dtype=torch.float32, device="cpu")
+    assert (ct, ft) == (cj, fj)
+    got = tnet.forward(pt, x, spec=tspec, conv_impls=ct, fc_impls=ft,
+                       compute_dtype=torch.float32, with_softmax=False,
+                       device="cpu")
+    _close(got, want, tol=1e-5 * float(np.abs(want).max()))
+
+
+def test_caffenet_int8_matches_jax():
+    """int8 'auto' (dynamic scales), bf16 activations: logits within 1e-2
+    of the largest |logit| (measured 0), top-1 equal."""
+    jspec, tspec = jzoo.get_model("caffenet"), tzoo.get_model("caffenet")
+    params = jsynth.random_pq_params(jspec, seed=0)
+    x = jsynth.random_input(jspec, 1, seed=1)
+    pj, cj, fj = jprepare(jspec, params, dtype=jnp.int8)
+    want = np.asarray(jnet.forward(pj, x, spec=jspec, conv_impls=cj,
+                                   fc_impls=fj, compute_dtype=jnp.bfloat16,
+                                   with_softmax=False), np.float32)
+    pt, ct, ft = tprepare(tspec, params, dtype=torch.int8, device="cpu")
+    got = tnet.forward(pt, x, spec=tspec, conv_impls=ct, fc_impls=ft,
+                       compute_dtype=torch.bfloat16, with_softmax=False,
+                       device="cpu")
+    _close(got, want, tol=1e-2 * float(np.abs(want).max()))
+    np.testing.assert_array_equal(got.float().numpy().argmax(1),
+                                  want.argmax(1))
+
+
+# ---- dtype None and the JAX signatures --------------------------------------
+
+def test_prepare_dtype_default_and_none_match_jax():
+    """The default dtype is bf16 in both packages; an explicit None keeps
+    float32 arrays and resolves strategies with no dtype in both."""
+    params = _params(seed=13)
+    for kw in ({}, {"dtype": None}):
+        pj, cj, fj = jprepare(JSPEC, params, batch_hint=3, conv_impl="memory",
+                              fc_impl="memory", **kw)
+        pt, ct, ft = tprepare(TSPEC, params, batch_hint=3, conv_impl="memory",
+                              fc_impl="memory", device="cpu", **kw)
+        assert (ct, ft) == (cj, fj)
+        want = np.asarray(pj[0]["codebooks"]).dtype.name
+        assert str(pt[0]["codebooks"].dtype) == f"torch.{want}"
+    pj, _, _ = jprepare(JSPEC, params)
+    pt, _, _ = tprepare(TSPEC, params, device="cpu")
+    assert pt[0]["kernel"].dtype == torch.bfloat16
+    assert np.asarray(pj[0]["kernel"]).dtype.name == "bfloat16"
+
+
+def test_forward_compute_dtype_none_matches_jax():
+    """None keeps x's dtype and resolves the memory rule as float32 (the
+    exact in-step decode): f32 within 1e-5 of the JAX forward, which a bf16
+    route would miss by about 1e-3."""
+    params = _params(seed=14)
+    x = jsynth.random_input(JSPEC, batch=3, seed=15)
+    kw = dict(conv_impl="memory", fc_impl="memory")
+    want = np.asarray(jnet.forward(params, x, spec=JSPEC, **kw))
+    got = tnet.forward(params, x, spec=TSPEC, device="cpu", **kw)
+    assert got.dtype == torch.float32
+    _close(got, want)
+    fn = tnet.make_forward_fn(TSPEC, donate_input=True, device="cpu", **kw)
+    _close(fn(params, x), want)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    for upto in (0, 4):  # bf16 x stays bf16 up to the first conv
+        want = jnet.forward(params, xb, spec=JSPEC, upto=upto)
+        got = tnet.forward(params, torch.from_numpy(x).to(torch.bfloat16),
+                           spec=TSPEC, upto=upto, device="cpu")
+        assert str(got.dtype) == f"torch.{want.dtype}"
+        _close(got, want)
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", [(jnp.float32, torch.float32, 1e-5),
+                                         (jnp.bfloat16, torch.bfloat16, 1e-2)])
+def test_memory_mode_at_256_codewords_matches_jax(jdt, tdt, tol):
+    """K = 256 (the quantizer's uint8 limit): memory mode decodes every
+    layer in the step (fc 'memory' resolves to 'indecode' past K = 128) and
+    gives the JAX forward's probabilities (f32 1e-5, bf16 1e-2)."""
+    g = np.random.default_rng(16)
+    params = _params(seed=16)
+    for i in (0, 4, 7):
+        s, _, d = params[i]["codebooks"].shape
+        params[i] = dict(params[i], codebooks=g.standard_normal(
+            (s, 256, d)).astype(np.float32) * 0.3, assignments=g.integers(
+                0, 256, size=params[i]["assignments"].shape, dtype=np.uint8))
+    x = jsynth.random_input(JSPEC, batch=3, seed=17)
+    pj, cj, fj = jprepare(JSPEC, params, batch_hint=3, conv_impl="memory",
+                          fc_impl="memory", dtype=jdt)
+    pt, ct, ft = tprepare(TSPEC, params, batch_hint=3, conv_impl="memory",
+                          fc_impl="memory", dtype=tdt, device="cpu")
+    assert (ct, ft) == (cj, fj) and set(ft) == {"-", "indecode"}
+    want = jnet.forward(pj, x, spec=JSPEC, conv_impls=cj, fc_impls=fj,
+                        compute_dtype=jdt)
+    got = tnet.forward(pt, x, spec=TSPEC, conv_impls=ct, fc_impls=ft,
+                       compute_dtype=tdt, device="cpu")
+    _close(got, want, tol=tol)

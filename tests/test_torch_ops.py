@@ -217,8 +217,8 @@ def _torch_params(p):
     return {k: T(v) for k, v in p.items()}
 
 
-@pytest.mark.parametrize("impl", ["gather", "decode", "indecode", "gdecode",
-                                  "lutgather", "fused", "fgather"])
+@pytest.mark.parametrize("impl", ["onehot", "gather", "decode", "indecode",
+                                  "gdecode", "lutgather", "fused", "fgather"])
 @pytest.mark.parametrize("perm", [False, True])
 def test_pq_fc_impls(rng, impl, perm):
     """Every pq_fc impl the port has, with and without the OPQ perm, against
@@ -261,10 +261,54 @@ def test_unported_conv_impls_raise(impl):
 
 @pytest.mark.parametrize("impl", ["onehot"])
 def test_unported_fc_impls_raise(impl):
-    p = {"codebooks": torch.zeros(1, 4, 4), "bias": torch.zeros(2),
+    """No fc impl is left unported: 'onehot', the last, runs and is the
+    default, as in the JAX package, and honours out_dtype as there."""
+    p = {"codebooks": torch.ones(1, 4, 4), "bias": torch.zeros(2),
          "assignments": torch.zeros((2, 1), dtype=torch.uint8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfc.pq_fc(torch.zeros(1, 4), p, impl=impl)
+    out = tfc.pq_fc(torch.ones(1, 4), p, impl=impl)
+    assert out.tolist() == [[4.0, 4.0]]
+    assert tfc.pq_fc(torch.ones(1, 4), p).tolist() == out.tolist()
+    bf = tfc.pq_fc(torch.ones(1, 4), p, out_dtype=torch.bfloat16)
+    jbf = jfc.pq_fc(jnp.ones((1, 4)), {k: v.numpy() for k, v in p.items()},
+                    out_dtype=jnp.bfloat16)
+    assert bf.dtype == torch.bfloat16 and str(jbf.dtype) == "bfloat16"
+
+
+@pytest.mark.parametrize("impl", ["indecode", "gdecode"])
+def test_pq_fc_at_256_codewords(rng, impl):
+    """K = 256 (uint8 ids): 'indecode' runs the pq_decode kernel's plain
+    version and matches the JAX one-hot decode (1e-5); 'gdecode' keeps the
+    JAX Pallas gather's K <= 128 and raises on both sides."""
+    x = rng.standard_normal((3, 58)).astype(np.float32)
+    p = _fc_params(rng, 58, 70, 15, 256, 4, False)
+    if impl == "gdecode":
+        with pytest.raises(ValueError, match="K <= 128"):
+            jfc.pq_fc(x, p, impl=impl)
+        with pytest.raises(ValueError, match="K <= 128"):
+            tfc.pq_fc(T(x), _torch_params(p), impl=impl)
+        return
+    want = np.asarray(jfc.pq_fc(x, p, impl=impl))
+    close(tfc.pq_fc(T(x), _torch_params(p), impl=impl), want)
+
+
+@pytest.mark.parametrize("impl", ["indecode_ohwi", "gdecode_iohw"])
+def test_pq_conv_at_256_codewords(rng, impl):
+    """As above for the conv: 'indecode_ohwi' matches the JAX one-hot decode
+    at K = 256, 'gdecode_iohw' raises on both sides."""
+    p = {"codebooks": rng.standard_normal((6, 256, 4)).astype(np.float32),
+         "assignments": rng.integers(0, 256, size=(12, 3, 3, 6),
+                                     dtype=np.uint8),
+         "bias": rng.standard_normal(12).astype(np.float32)}
+    x = rng.standard_normal((2, 9, 8, 44)).astype(np.float32)
+    kw = dict(stride=2, pad=1, groups=2, impl=impl)
+    if impl == "gdecode_iohw":
+        with pytest.raises(ValueError, match="K <= 128"):
+            jconv.pq_conv(x, p, **kw)
+        with pytest.raises(ValueError, match="K <= 128"):
+            tconv.pq_conv(T(x), _torch_params(p), **kw)
+        return
+    want = np.asarray(jconv.pq_conv(x, p, **kw))
+    close(tconv.pq_conv(T(x), _torch_params(p), **kw), want)
 
 
 def test_unknown_impls_raise():

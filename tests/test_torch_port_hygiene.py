@@ -17,7 +17,14 @@ import torch
 import qcnn_tpu_torch
 from qcnn_tpu_torch import _device
 from qcnn_tpu_torch.core import FCSpec, ModelSpec, SoftmaxSpec
-from qcnn_tpu_torch.models import common, network, prepare, resnet, synth
+from qcnn_tpu_torch.models import (
+    calibrate,
+    common,
+    network,
+    prepare,
+    resnet,
+    synth,
+)
 from qcnn_tpu_torch.models.interop import (
     family_params_from_jax,
     params_from_jax,
@@ -41,7 +48,8 @@ def test_port_modules_import_no_jax_in_a_fresh_interpreter():
     mods = _port_modules()
     for name in ("ops.cuda.pq_fc_fused", "ops.cuda.pq_conv_fused",
                  "ops.cuda.pq_fc", "ops.cuda.lrn_fused", "models.resnet",
-                 "models.common", "models.synth", "models.interop"):
+                 "models.common", "models.synth", "models.interop",
+                 "models.calibrate"):
         assert f"qcnn_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -120,11 +128,26 @@ def test_entry_points_never_run_on_the_cpu_unasked(monkeypatch):
         network.forward(params, x, spec=spec)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax(params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prepare.prepare_params(spec, params, dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibrate.calibrate_act_scales(spec, params, x)
     prepared, conv_impls, fc_impls = prepare.prepare_params(
         spec, params, device="cpu")
-    assert prepared[0]["weight"].dtype == torch.float32  # f32 on the CPU
+    assert prepared[0]["weight"].dtype == torch.bfloat16  # the default
     out = network.forward(prepared, x, spec=spec, conv_impls=conv_impls,
                           fc_impls=fc_impls, device="cpu")
+    assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
+    scales = calibrate.calibrate_act_scales(spec, params, x, device="cpu")
+    prepared, conv_impls, fc_impls = prepare.prepare_params(
+        spec, params, dtype=torch.int8, act_scales=scales, device="cpu")
+    assert prepared[0]["weight_q"].dtype == torch.int8
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        network.forward(prepared, x, spec=spec, conv_impls=conv_impls,
+                        fc_impls=fc_impls, compute_dtype=torch.bfloat16)
+    out = network.forward(prepared, x, spec=spec, conv_impls=conv_impls,
+                          fc_impls=fc_impls, compute_dtype=torch.bfloat16,
+                          device="cpu")
     assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
 
 
@@ -138,6 +161,9 @@ def test_family_entry_points_never_run_on_the_cpu_unasked(monkeypatch):
         resnet.prepare_params(spec, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         common.build_family_forward("resnet", spec, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        common.build_family_forward("resnet", spec, params,
+                                    compute_dtype=torch.int8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         family_params_from_jax(params)
     prepared, fwd, act = common.build_family_forward("resnet", spec, params,

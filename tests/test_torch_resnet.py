@@ -189,15 +189,22 @@ def test_forward_segments_compose_to_forward():
 
 
 def test_unported_parts_raise_naming_the_roadmap():
+    """The quantizer (A11) and ViT (A9) raise naming the ROADMAP; int8 is
+    ported: its prepare quantizes and build_family_forward runs it with
+    bf16 activations."""
     spec = tresnet.ResNetSpec(**SMALL["basic"])
     params = synth.random_resnet_pq_params(spec, seed=0)
     with pytest.raises(NotImplementedError, match="A11"):
         tresnet.quantize_params(spec, tresnet.init_dense_params(spec))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tresnet.prepare_params(spec, params, dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcommon.build_family_forward("resnet", spec, params,
-                                     compute_dtype=torch.int8, device="cpu")
+    prepared = tresnet.prepare_params(spec, params, dtype=torch.int8,
+                                      device="cpu")
+    assert prepared["s0b0"]["conv1"]["kernel_q"].dtype == torch.int8
+    assert prepared["fc"]["scale"].dtype == torch.float32
+    prepared, fwd, act = tcommon.build_family_forward(
+        "resnet", spec, params, compute_dtype=torch.int8, device="cpu")
+    assert act == torch.bfloat16
+    probs = fwd(prepared, np.zeros((1, 32, 32, 3), np.float32))
+    assert probs.shape == (1, 10) and torch.isfinite(probs).all()
     with pytest.raises(NotImplementedError, match="A9"):
         tcommon.build_family_forward("vit", spec, params, device="cpu")
     with pytest.raises(ValueError, match="unknown model family"):
@@ -226,3 +233,22 @@ def test_family_interop_keeps_bf16_bits_and_layouts():
                     assert c.dtype == t.dtype and c.shape == t.shape, leaf
                     assert c.stride() == t.stride(), (name, key, leaf)
                     assert torch.equal(c, t), (name, key, leaf)
+
+
+def test_prepare_takes_a_bare_top_level_conv():
+    """A top-level entry that is a conv (PQ or dense), not a block, is
+    prepared as one, as the JAX package does (qcnn_tpu/models/resnet.py:
+    373-374): bit-equal bf16 weights, the decode's Cin taken from S*D."""
+    jspec = jresnet.ResNetSpec(**SMALL["basic"])
+    tspec = tresnet.ResNetSpec(**SMALL["basic"])
+    params = synth.random_resnet_pq_params(tspec, seed=0)
+    params["extra"] = params["s1b0"]["conv2"]   # PQ, S*D = 256
+    params["extra_dense"] = params["stem"]      # dense
+    pj = jresnet.prepare_params(jspec, params, dtype=jnp.bfloat16)
+    carried = family_params_from_jax(pj, device="cpu")
+    ours = tresnet.prepare_params(tspec, params, dtype=torch.bfloat16,
+                                  device="cpu")
+    for name in ("extra", "extra_dense"):
+        for leaf, t in ours[name].items():
+            assert torch.equal(t, carried[name][leaf]), (name, leaf)
+            assert t.stride() == carried[name][leaf].stride()
