@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only-gather  # phases 1-2 and the two gathers
     python3 chip_smoke.py --only-lut-lrn # phases 1-2, pq_lut_gather, lrn_fused
     python3 chip_smoke.py --only-int8    # phases 1-2, the f32 conv check, 8
+    python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
@@ -91,6 +92,28 @@ Phases, each fatal on failure (any exception exits non-zero):
    scales, no kernel) at B=64 and B=1, each through the same loops,
    profile and launch checks as phase 5, and each held to its bf16
    counterpart's logits.
+9. from files to top-5, as a user runs it (eval/, formats/, preproc/,
+   models/loader.py). Both host libraries (the .cbn page codec and the image
+   pipeline) are built with g++, strictly: a failed build fails the phase,
+   and the native codec must give NumPy's bits on fc6's full-width
+   assignments. In a temporary directory the port's own writers put
+   AlexNet-PQ (synthetic, seed 0) in the reference layout, a (3, 256, 256)
+   mean image, 1000 class names, image labels, 64 BMPs of mixed sizes and a
+   .bin of 256 preprocessed images. Classifier.from_reference('alexnet',
+   memory, batch_hint=64) runs classify_batch on the 64 BMPs (pq_decode 1
+   and pq_fc_fused 3 a call), its native preprocessing is held to the
+   NumPy path and its probabilities to network.forward 'auto' on the same
+   batch; a batch_hint=1 classifier runs classify on one image
+   (pq_decode 1, pq_lut_gather 3). evaluate_dataset streams the .bin with
+   read_bin_batches at batch 64 and must give the accuracy_at_k of one
+   in-memory forward of all 256. Then ResNet-50 goes through
+   save_family_checkpoint + save_preprocessor(TorchPreprocessor.imagenet())
+   and FamilyClassifier.from_checkpoint(memory=True) classifies 16 BMPs
+   (pq_conv_fused 7, pq_decode 17 a call), held to memory=False. Each path
+   runs once to warm up, then with the counts set to 0: any other count
+   fails. The 'io ...' lines give bytes written, load and build seconds,
+   preprocessing and classify ms an image, evaluate_dataset images/s, the
+   TimerSet reports and the card's name and power limit.
 
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
@@ -118,11 +141,19 @@ Limits (the script fails past them):
   3.40e-2 (B=256) and 3.42e-2 (B=1), with fc memory 2.72e-2 and 1.83e-2;
   ResNet-50 2.39e-2 (B=64) and 2.06e-2 (B=1); top-1 agreement 1.0 in every
   run.
+- phase 9: native preprocessing against NumPy at rtol 1e-4, atol 1e-3
+  (Caffe pipeline) and 1e-5, 1e-5 (torch pipeline), the limits of
+  tests/test_native_preproc.py; the classifier against network.forward
+  'auto' and the family memory mode against decode at load at the limits
+  of phases 5 and 7; evaluate_dataset's accuracy equal to accuracy_at_k's.
+  Its labels are each even row's top class and each odd row's 500th (by
+  the in-memory forward, whose softmax is checked not to saturate), so no
+  hit hangs on rounding.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
-neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8
-or --gather-times it stops early and prints neither.
+neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
+--only-io or --gather-times it stops early and prints neither.
 """
 
 from __future__ import annotations
@@ -1680,6 +1711,298 @@ def phase_int8(spec, params, rparams, dev, peaks, gpu_name):
     return counts
 
 
+# phase 9: BMPs of mixed sizes (height, width), cycled: below the 256-px
+# resize, non-square, and widths that are not multiples of 4 (padded rows)
+IO_BMP_SIZES = ((256, 256), (181, 257), (333, 250), (200, 301), (375, 500),
+                (227, 227), (240, 321), (300, 200))
+# the evaluate_dataset images: standard normal times this scale, where the
+# random AlexNet's softmax does not saturate (on the CPU, f32: largest
+# |logit| 6.8, smallest probability 3.7e-7), so that no rank that decides a
+# hit is a tie of probabilities at 0
+IO_DATASET_SCALE = 0.1
+IO_BMPS, IO_FAMILY_BMPS, IO_DATASET_ROWS, IO_BATCH = 64, 16, 256, 64
+
+
+def io_drive(label: str, clf, run, calls: int, per_call: dict,
+             images: int) -> dict:
+    """One warm-up call, then the classifier's timers and the counts set to
+    0, `calls` timed calls, counts read and held to `per_call` (launches a
+    call; 0 for a kernel it does not name). Logs the median ms an image
+    and the TimerSet report of the timed calls; returns the counts."""
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.utils.timing import TimerSet
+
+    run()
+    torch.cuda.synchronize()
+    clf.timers = TimerSet()
+    cuda_ops.reset_launches()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / images)
+    counts = cuda_ops.launches()
+    for name, got in counts.items():
+        if got != per_call.get(name, 0) * calls:
+            raise AssertionError(f"io {label}: {name} launched {got} times, "
+                                 f"expected {per_call.get(name, 0)} per call "
+                                 f"x {calls}")
+    ms = float(np.median(times))
+    log(f"io {label}: ms/image={ms:.4f} (range {min(times):.4f}-"
+        f"{max(times):.4f} over {calls} calls) launches per call="
+        f"{ {k: v // calls for k, v in counts.items() if v} }")
+    log(f"io {label}: TimerSet " + ", ".join(
+        f"{k} mean_ms={v['mean_ms']:.4f} x{v['count']}"
+        for k, v in clf.timers.report().items()))
+    return counts
+
+
+def write_io_files(d: str, spec, params) -> dict:
+    """Phase 9, step 2: the files a user brings, written by the port's own
+    writers: AlexNet-PQ in the reference layout, its mean image, class
+    names, image labels, BMPs and a .bin of preprocessed images."""
+    from qcnn_tpu_torch.formats import write_bin
+    from qcnn_tpu_torch.models import loader, synth
+    from qcnn_tpu_torch.preproc import encode_bmp24
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    loader.save_reference_model(spec, params,
+                                os.path.join(d, "AlexNet", "Bin.Files"),
+                                "bvlc_alexnet_aCaF")
+    write_bin(os.path.join(d, "AlexNet", "imagenet_mean.single.bin"),
+              rng.uniform(100, 130, (3, 256, 256)).astype(np.float32))
+    with open(os.path.join(d, "class_names.txt"), "w") as f:
+        f.writelines(f"class {i}\n" for i in range(1000))
+    paths, labels = [], {}
+    for i in range(IO_BMPS):
+        h, w = IO_BMP_SIZES[i % len(IO_BMP_SIZES)]
+        stem = f"ILSVRC2012_val_{i + 1:08d}"
+        path = os.path.join(d, "bmp", stem + ".BMP")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(encode_bmp24(rng.integers(0, 256, (h, w, 3),
+                                              dtype=np.uint8)))
+        paths.append(path)
+        labels[stem] = int(rng.integers(0, 1000))
+    with open(os.path.join(d, "image_labels.txt"), "w") as f:
+        f.writelines(f"{stem}.JPEG {c}\n" for stem, c in labels.items())
+    dataset = synth.random_input(spec, IO_DATASET_ROWS,
+                                 seed=5) * IO_DATASET_SCALE
+    write_bin(os.path.join(d, "val.bin"), dataset)
+    seconds = time.perf_counter() - t0
+    sizes = {}
+    for root, _, files in os.walk(d):
+        for name in files:
+            sizes[os.path.join(root, name)] = os.path.getsize(
+                os.path.join(root, name))
+    ref = sum(v for k, v in sizes.items() if "Bin.Files" in k)
+    log(f"io wrote {len(sizes)} files, {sum(sizes.values())} bytes in "
+        f"{seconds:.2f} s: reference layout "
+        f"{len(os.listdir(os.path.join(d, 'AlexNet', 'Bin.Files')))} files "
+        f"{ref} bytes, {IO_BMPS} BMPs "
+        f"{sum(v for k, v in sizes.items() if k.endswith('.BMP'))} bytes, "
+        f"val.bin {sizes[os.path.join(d, 'val.bin')]} bytes")
+    return {"paths": paths, "labels": labels, "dataset": dataset}
+
+
+def phase_io(spec, params, rparams, dev, smi: str) -> dict:
+    """Phase 9: the I/O and classify path, from files to top-5 on the card.
+    Returns the launch counts of each path it drives."""
+    import tempfile
+
+    from qcnn_tpu_torch.core import FCSpec
+    from qcnn_tpu_torch.eval import (
+        Classifier,
+        FamilyClassifier,
+        accuracy_at_k,
+        evaluate_dataset,
+    )
+    from qcnn_tpu_torch.eval.harness import upload
+    from qcnn_tpu_torch.formats import native as cbn_native
+    from qcnn_tpu_torch.formats import read_bin_batches, reference_codec
+    from qcnn_tpu_torch.formats.checkpoint import (
+        save_family_checkpoint,
+        save_preprocessor,
+    )
+    from qcnn_tpu_torch.models import loader, network, prepare, resnet
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.preproc import TorchPreprocessor
+    from qcnn_tpu_torch.preproc import native as img_native
+
+    # step 1: the native libraries, built strictly (no NumPy fallback here)
+    for name, lib in (("cbncodec", cbn_native.LIBRARY),
+                      ("imgproc", img_native.LIBRARY)):
+        path, seconds = lib.build()
+        log(f"io build {name} {os.path.basename(path)} "
+            f"seconds={seconds:.2f}")
+    codec = cbn_native.get_lib()
+    if codec is None or not img_native.available():
+        raise AssertionError("io: a native library built but did not load")
+    fc6 = next(p for layer, p in zip(spec.layers, params)
+               if isinstance(layer, FCSpec))
+    asmt = np.asarray(fc6["assignments"]).reshape(-1).astype(np.uint32)
+    bits = max(1, int(asmt.max()).bit_length())
+    t0 = time.perf_counter()
+    pages = codec.pack_pages(asmt, bits)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = reference_codec._pack_pages_numpy(asmt, bits)
+    t_numpy = time.perf_counter() - t0
+    if not (np.array_equal(pages, want) and np.array_equal(
+            codec.unpack_pages(pages, asmt.size, bits),
+            reference_codec._unpack_pages_numpy(want, asmt.size, bits))):
+        raise AssertionError("io: native .cbn codec differs from NumPy")
+    log(f"io cbn codec fc6 assignments {tuple(fc6['assignments'].shape)} "
+        f"bits={bits}: native == NumPy bit for bit; pack ms native="
+        f"{t_native * 1e3:.2f} numpy={t_numpy * 1e3:.2f}")
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as d:
+        # step 2: the files
+        files = write_io_files(d, spec, params)
+        paths = files["paths"]
+
+        # step 3: the AlexNet classifier, memory mode, batch_hint=64
+        t0 = time.perf_counter()
+        res = loader.load_reference_model(
+            spec, os.path.join(d, "AlexNet", "Bin.Files"),
+            "bvlc_alexnet_aCaF")
+        load_s = time.perf_counter() - t0
+        if res.synthesized_layers:
+            raise AssertionError(f"io: synthesized {res.synthesized_layers}")
+        t0 = time.perf_counter()
+        clf = Classifier.from_reference(
+            "alexnet", d, conv_impl="memory", fc_impl="memory",
+            class_names_path=os.path.join(d, "class_names.txt"),
+            image_labels_path=os.path.join(d, "image_labels.txt"))
+        torch.cuda.synchronize()
+        log(f"io load_reference_model seconds={load_s:.3f}; "
+            f"Classifier.from_reference (load + prepare, memory, "
+            f"batch_hint=64) seconds={time.perf_counter() - t0:.3f} "
+            f"fc_impls={sorted(set(clf.fc_impls) - {'-'})} "
+            f"dtype={clf.params[0]['codebooks'].dtype}")
+        t0 = time.perf_counter()
+        x_native = clf.pre.load_batch(paths, native="require")
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x_numpy = clf.pre.load_batch(paths, native="never")
+        t_numpy = time.perf_counter() - t0
+        err = float(np.abs(x_native - x_numpy).max())
+        log(f"io preproc {IO_BMPS} BMPs -> {x_native.shape}: ms/image "
+            f"native={t_native * 1e3 / IO_BMPS:.3f} "
+            f"numpy={t_numpy * 1e3 / IO_BMPS:.3f} "
+            f"max|native-numpy|={err:.3e}")
+        np.testing.assert_allclose(x_native, x_numpy, rtol=1e-4, atol=1e-3)
+
+        results = []
+        counts["io alexnet classify"] = io_drive(
+            f"alexnet classify_batch memory batch_hint=64 B={IO_BMPS}", clf,
+            lambda: results.append(clf.classify_batch(paths)), 3,
+            {"pq_decode": 1, "pq_fc_fused": 3}, IO_BMPS)
+        got = torch.from_numpy(clf._probs(x_native))
+        auto, conv_a, fc_a = prepare.prepare_params(
+            spec, clf.raw_params, batch_hint=64, dtype=torch.bfloat16,
+            device=dev)
+        ref = network.forward(auto, upload(x_native, dev), spec=spec,
+                              conv_impls=conv_a, fc_impls=fc_a,
+                              compute_dtype=torch.bfloat16,
+                              device=dev).float().cpu()
+        del auto
+        agree(f"io alexnet classifier (memory) vs network.forward auto "
+              f"B={IO_BMPS}",
+              ref, got, 1e-2, 0.99)
+        last = results[-1]
+        if [r.class_ids[0] for r in last] != got.argmax(1).tolist():
+            raise AssertionError("io: classify_batch top-1 differs from "
+                                 "its forward")
+        if [r.ground_truth_id for r in last] != list(
+                files["labels"].values()):
+            raise AssertionError("io: ground-truth ids differ from the "
+                                 "label file")
+        log(f"io top-5 of image 1: ids={last[0].class_ids} "
+            f"names={last[0].class_names} probs[0]={last[0].probs[0]:.6f} "
+            f"ground_truth={last[0].ground_truth}")
+
+        clf1 = Classifier.from_reference("alexnet", d, conv_impl="memory",
+                                         fc_impl="memory", batch_hint=1)
+        one = []
+        counts["io alexnet classify batch_hint=1"] = io_drive(
+            "alexnet classify memory batch_hint=1 B=1", clf1,
+            lambda: one.append(clf1.classify(paths[0])), 10,
+            {"pq_decode": 1, "pq_lut_gather": 3}, 1)
+        if one[-1].class_ids[0] != last[0].class_ids[0]:
+            raise AssertionError("io: batch_hint=1 top-1 differs")
+        del clf1
+
+        # step 4: evaluate_dataset over the streamed .bin
+        dataset = files["dataset"]
+        probs = clf._probs(dataset)  # one in-memory forward of every row
+        if not probs.min() > 0:
+            raise AssertionError("io: the evaluation softmax saturated")
+        order = np.argsort(-probs, axis=1, kind="stable")
+        labels = np.where(np.arange(IO_DATASET_ROWS) % 2 == 0, order[:, 0],
+                          order[:, 500])
+        want = accuracy_at_k(probs, labels)
+        cuda_ops.reset_launches()
+        rep = evaluate_dataset(
+            clf._fwd, clf.params,
+            read_bin_batches(os.path.join(d, "val.bin"), np.float32,
+                             IO_BATCH),
+            labels, batch_size=IO_BATCH)
+        counts["io alexnet evaluate_dataset"] = cuda_ops.launches()
+        log(f"io evaluate_dataset val.bin {IO_DATASET_ROWS} images batch "
+            f"{IO_BATCH}: "
+            f"images/s={rep['images_per_s']:.1f} forward_s="
+            f"{rep['forward_s']:.4f} accuracy={rep['accuracy']} "
+            f"in-memory accuracy_at_k={want} launches="
+            f"{ {k: v for k, v in counts['io alexnet evaluate_dataset'].items() if v} }")
+        if rep["images"] != IO_DATASET_ROWS or rep["accuracy"] != want:
+            raise AssertionError("io: evaluate_dataset differs from the "
+                                 "in-memory accuracy")
+        batches = -(-IO_DATASET_ROWS // IO_BATCH)
+        if counts["io alexnet evaluate_dataset"] != {
+                k: {"pq_decode": 1, "pq_fc_fused": 3}.get(k, 0) * batches
+                for k in counts["io alexnet evaluate_dataset"]}:
+            raise AssertionError("io: evaluate_dataset launched other "
+                                 "kernels than pq_decode 1 + pq_fc_fused 3 "
+                                 "a batch")
+        del clf
+
+        # step 5: the ResNet-50 family checkpoint, memory mode
+        ck = os.path.join(d, "resnet50")
+        t0 = time.perf_counter()
+        save_family_checkpoint(ck, "resnet", resnet.resnet50(), rparams)
+        save_preprocessor(ck, TorchPreprocessor.imagenet())
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fam = FamilyClassifier.from_checkpoint(ck, memory=True)
+        torch.cuda.synchronize()
+        log(f"io resnet50 family checkpoint "
+            f"{sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))}"
+            f" bytes: save seconds={save_s:.3f}, FamilyClassifier."
+            f"from_checkpoint (memory) seconds={time.perf_counter() - t0:.3f}")
+        paths16 = paths[:IO_FAMILY_BMPS]
+        x_native = fam.pre.load_batch(paths16, native="require")
+        np.testing.assert_allclose(
+            x_native, fam.pre.load_batch(paths16, native="never"),
+            rtol=1e-5, atol=1e-5)
+        counts["io resnet50 family"] = io_drive(
+            f"resnet50 family classify_batch memory B={IO_FAMILY_BMPS}", fam,
+            lambda: fam.classify_batch(paths16), 3,
+            {"pq_conv_fused": 7, "pq_decode": 17}, IO_FAMILY_BMPS)
+        got = torch.from_numpy(fam._probs(x_native))
+        del fam
+        dec = FamilyClassifier.from_checkpoint(ck, memory=False)
+        agree(f"io resnet50 family memory vs decode at load "
+              f"B={IO_FAMILY_BMPS}",
+              torch.from_numpy(dec._probs(x_native)), got, 5e-3, 0.99)
+        del dec
+    log(f"io card: {smi}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(
         description="Chip smoke of the PyTorch + CUDA port on one card.")
@@ -1695,6 +2018,9 @@ def main() -> int:
     only.add_argument("--only-int8", action="store_true",
                       help="stop after the build, the f32 conv check and "
                            "phase 8 (int8)")
+    only.add_argument("--only-io", action="store_true",
+                      help="stop after the build, the f32 conv check and "
+                           "phase 9 (files to top-5)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
@@ -1750,6 +2076,10 @@ def main() -> int:
                         "rows": rows}))
         return 0
     rparams = synth.random_resnet_pq_params(resnet.resnet50(), seed=0)
+    if args.only_io:
+        counts = phase_io(spec, params, rparams, dev, smi)
+        log(json.dumps({"partial": "io only", "launches": counts}))
+        return 0
     if args.only_int8:
         counts = phase_int8(spec, params, rparams, dev, peaks, gpu_name)
         log(json.dumps({"partial": "int8 only", "launches": counts}))
@@ -1780,14 +2110,19 @@ def main() -> int:
     # phase 8: int8
     counts["alexnet int8 memory"] = phase_int8(spec, params, rparams, dev,
                                                peaks, gpu_name)
+    # phase 9: from files to top-5
+    counts |= phase_io(spec, params, rparams, dev, smi)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
     owners = {  # the paths that own each kernel
-        "pq_decode": ("alexnet memory", "resnet50 memory"),
-        "pq_lut_gather": ("alexnet memory", "alexnet int8 memory"),
-        "pq_fc_fused": ("alexnet memory", "alexnet int8 memory"),
+        "pq_decode": ("alexnet memory", "resnet50 memory",
+                      "io alexnet classify", "io resnet50 family"),
+        "pq_lut_gather": ("alexnet memory", "alexnet int8 memory",
+                          "io alexnet classify batch_hint=1"),
+        "pq_fc_fused": ("alexnet memory", "alexnet int8 memory",
+                        "io alexnet classify", "io alexnet evaluate_dataset"),
         "lrn_fused": ("lrn_fused entry point",),
-        "pq_conv_fused": ("resnet50 memory",),
+        "pq_conv_fused": ("resnet50 memory", "io resnet50 family"),
         "pq_fc": ("alexnet pallas",),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),

@@ -25,3 +25,15 @@ def default_dtype(device: torch.device) -> torch.dtype:
     """bf16 on the card, f32 on the CPU (``qcnn_tpu/eval/harness.py``
     picks bf16 on the TPU and f32 elsewhere)."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def iter_tensors(tree):
+    """Every tensor in a tensor or a nested list / tuple / dict of them."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from iter_tensors(v)

@@ -1,10 +1,10 @@
 """Weights carried across from the JAX package.
 
 ``params_from_jax`` turns a ``qcnn_tpu`` parameter list — NumPy arrays, raw
-PQ or as ``qcnn_tpu.models.prepare.prepare_params`` returns them — into the
-port's; ``family_params_from_jax`` does the same for the nested dict of a
-model family (``qcnn_tpu.models.resnet.prepare_params`` or
-``quantize_params``), int8 ones included. Neither imports JAX or
+PQ or as ``prepare_params`` of ``qcnn_tpu/models/prepare.py`` returns
+them — into the port's; ``family_params_from_jax`` does the same for the
+nested dict of a model family (``prepare_params`` or ``quantize_params``
+of ``qcnn_tpu/models/resnet.py``), int8 ones included. Neither imports JAX or
 ml_dtypes: a bfloat16 NumPy array is recognised by its dtype's name and
 moved as its 16 bits.
 """

@@ -7,6 +7,7 @@ import ast
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -49,7 +50,10 @@ def test_port_modules_import_no_jax_in_a_fresh_interpreter():
     for name in ("ops.cuda.pq_fc_fused", "ops.cuda.pq_conv_fused",
                  "ops.cuda.pq_fc", "ops.cuda.lrn_fused", "models.resnet",
                  "models.common", "models.synth", "models.interop",
-                 "models.calibrate"):
+                 "models.calibrate", "models.loader", "native_build",
+                 "formats.reference_codec", "formats.checkpoint",
+                 "formats.native", "preproc.bmp", "preproc.pipeline",
+                 "preproc.native", "utils.timing", "eval.harness"):
         assert f"qcnn_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -88,10 +92,52 @@ def test_no_forbidden_import_anywhere_in_the_sources():
         assert not bad, f"{path} imports {bad}"
 
 
+def _strings_of(path: str) -> list[str]:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)]
+
+
+def test_no_string_names_a_jax_package_module():
+    """A module path in a string (``importlib`` tables such as the
+    checkpoint store's family specs) is an import the AST check above does
+    not see; docstrings are held to the same rule."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.dirname(qcnn_tpu_torch.__file__)):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    pattern = re.compile(r"\b(qcnn_tpu|jax|ml_dtypes)\.[a-z_]")
+    for path in paths:
+        bad = [s for s in _strings_of(path) if pattern.search(s)]
+        assert not bad, f"{path} names {bad}"
+
+
 def test_import_builds_nothing():
     from qcnn_tpu_torch.ops.cuda import _build
 
     assert _build._library.cache_info().currsize == 0
+
+
+def test_importing_every_module_starts_no_compiler():
+    """In a fresh interpreter where starting a process raises: importing
+    every module of the port compiles and loads no library (nvcc's or
+    g++'s)."""
+    code = (
+        "import importlib, subprocess\n"
+        "def refuse(*a, **k): raise AssertionError(f'started {a}')\n"
+        "subprocess.run = subprocess.Popen = refuse\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "from qcnn_tpu_torch.formats import native as f\n"
+        "from qcnn_tpu_torch.preproc import native as p\n"
+        "from qcnn_tpu_torch.ops.cuda import _build\n"
+        "assert f.LIBRARY._lib is None and p.LIBRARY._lib is None\n"
+        "assert _build._library.cache_info().currsize == 0\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
@@ -174,3 +220,42 @@ def test_family_entry_points_never_run_on_the_cpu_unasked(monkeypatch):
         resnet.forward(prepared, x, spec=spec)
     out = fwd(prepared, x)
     assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
+
+
+def test_classifiers_never_run_on_the_cpu_unasked(monkeypatch, tmp_path):
+    from qcnn_tpu_torch.eval import Classifier, FamilyClassifier
+    from qcnn_tpu_torch.formats import write_bin
+    from qcnn_tpu_torch.formats.checkpoint import (
+        save_family_checkpoint,
+        save_preprocessor,
+    )
+    from qcnn_tpu_torch.models import loader, zoo
+    from qcnn_tpu_torch.preproc import TorchPreprocessor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ModelSpec(name="t", in_height=4, in_width=4, in_channels=3,
+                     layers=(FCSpec(3), SoftmaxSpec()))
+    pre = TorchPreprocessor.imagenet(crop=4, resize=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Classifier(spec, synth.random_pq_params(spec, seed=0), pre)
+    d = tmp_path / "AlexNet"
+    loader.save_reference_model(zoo.alexnet(),
+                                synth.random_pq_params(zoo.alexnet(), seed=0),
+                                str(d / "Bin.Files"), "bvlc_alexnet_aCaF")
+    write_bin(d / "imagenet_mean.single.bin",
+              np.zeros((3, 256, 256), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Classifier.from_reference("alexnet", str(tmp_path))
+    rspec = resnet.ResNetSpec("t", (1,), (64,), num_classes=3, in_size=16,
+                              bottleneck=False)
+    rparams = synth.random_resnet_pq_params(rspec, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FamilyClassifier("resnet", rspec, rparams, pre)
+    ck = str(tmp_path / "family")
+    save_family_checkpoint(ck, "resnet", rspec, rparams)
+    save_preprocessor(ck, pre)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FamilyClassifier.from_checkpoint(ck)
+    clf = FamilyClassifier.from_checkpoint(ck, device="cpu")
+    assert clf.device == torch.device("cpu")
+    assert clf.params["fc"]["weight"].dtype == torch.float32
