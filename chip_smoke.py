@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only-lut-lrn # phases 1-2, pq_lut_gather, lrn_fused
     python3 chip_smoke.py --only-int8    # phases 1-2, the f32 conv check, 8
     python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
+    python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
@@ -21,20 +22,24 @@ Phases, each fatal on failure (any exception exits non-zero):
    and prints what ptxas reports for each kernel (registers, shared memory,
    spills, warnings) under the kernel's name. Then one float32 conv_dense
    (AlexNet conv2's geometry, B=8) under those defaults against float64:
-   the package's f32 convs must not run in TF32.
+   the package's f32 convs must not run in TF32. Then one ViT-B/16 block
+   in float32 (B=2, 197 tokens) with TF32 allowed for float32 matmuls
+   (torch.set_float32_matmul_precision("high")) against the block written
+   out in float64: the package's f32 matmuls must not run in TF32 either.
 3. kernels vs plain versions at every geometry of the main paths:
    pq_fc_fused at AlexNet fc6-8 (B=256, 3, 64 and 1024, both decode names)
-   and pq_conv_fused at ResNet-50's two fused geometries (B=64 and B=1),
-   all of which must plan the wgmma kernels; each split contraction is
-   launched twice and must give the same bits; odd shapes the wgmma
-   kernels take and ragged ones that go to the general kernels.
+   and at ViT-L/16's mlp1 (1024 -> 4096) and mlp2 (4096 -> 1024) with one
+   image's 197 rows, and pq_conv_fused at ResNet-50's two fused geometries
+   (B=64 and B=1), all of which must plan the wgmma kernels; each split
+   contraction is launched twice and must give the same bits; odd shapes
+   the wgmma kernels take and ragged ones that go to the general kernels.
    pq_fc at AlexNet fc6-8 (B=256, 64, 3 and 1) and on ragged shapes (S not
    a multiple of 16, K=256, K not a multiple of 4), each launched twice
    with equal bits. pq_decode bit-exact in bf16 and f32 under its plan and
    under the general plan (AlexNet conv1-5 and fc6-8, every PQ weight of
    ResNet-50, fc6's geometry at K = 256), and the grouped launch
    bit-equal to per-item launches (AlexNet's five convs, block 0 of each
-   ResNet-50 stage, 20 items).
+   ResNet-50 stage, the four projections of a ViT-B/16 block, 20 items).
    pq_lut_gather at fc6-8 for B = 1, 2 (the route's), 3 and 17 (batch
    tiles of 4 and 8 rows), all of which must plan the staged kernel, each
    launched twice with equal bits and held bit for bit to split_sum_plain
@@ -115,6 +120,22 @@ Phases, each fatal on failure (any exception exits non-zero):
    preprocessing and classify ms an image, evaluate_dataset images/s, the
    TimerSet reports and the card's name and power limit.
 
+10. the ViT family, full width (224x224, 1000 classes), synthetic PQ params
+   (seed 0), through build_family_forward; each run through the loops,
+   profile and launch checks of phase 5, with resident and peak bytes:
+   A: ViT-B/16 decode at load, bf16, B=32 (serving_defaults' max_batch)
+      and B=1: no kernel;
+   B: ViT-B/16 memory mode, B=32 and B=1: pq_decode 14 a forward (the
+      patch embedding, one grouped launch a block for its four
+      projections, the head) and no other kernel;
+   C: ViT-L/16 memory mode, B=1: pq_decode 26 and pq_fc_fused 48 (mlp1
+      and mlp2 of every block: 197 rows, under fc_memory_impl's 1024);
+   D: ViT-L/16 decode at load, B=1: no kernel;
+   E: ViT-B/16 int8 (dynamic amax, bf16 activations), B=32: no kernel;
+   F: save_family_checkpoint of ViT-B/16 + TorchPreprocessor.imagenet(),
+      FamilyClassifier.from_checkpoint(memory=True) on 16 BMPs: pq_decode
+      14 a call, held to memory=False.
+
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
   (wgmma and general kernels) 1e-4 and pq_fc 1e-5 of the largest |output|
@@ -149,11 +170,18 @@ Limits (the script fails past them):
   Its labels are each even row's top class and each odd row's 500th (by
   the in-memory forward, whose softmax is checked not to saturate), so no
   hit hangs on rounding.
+- phase 10 (every run is logged before a broken limit fails it): ViT
+  memory mode against decode at load (B vs A, C vs D, F's classifier):
+  ResNet-50's, max |dprob| <= 5e-3 and top-1 equal on >= 99 % of rows.
+  ViT-B/16 int8 against bf16 decode at load (E vs A): relative L2 of the
+  logits <= 0.2, the JAX package's own bound for its family int8
+  (tests/test_model_families.py); the top-1 agreement is logged.
+- the f32 ViT block against float64: 1e-5 of the largest |output|.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
---only-io or --gather-times it stops early and prints neither.
+--only-io, --only-vit or --gather-times it stops early and prints neither.
 """
 
 from __future__ import annotations
@@ -595,7 +623,7 @@ def phase_gather_times(geo, spec, dev, flush):
     log(f"gather-times lrn_fused both kernel_ms={total:.5f}")
 
 
-def phase_gather_kernels(spec, geo, rparams, dev, flush, peaks):
+def phase_gather_kernels(spec, geo, rparams, vparams, dev, flush, peaks):
     """Phases 3 and 4 for the two gathers.
 
     pq_fc at AlexNet fc6-8, B = 256 (summed into the kernel's row), 64, 3
@@ -777,6 +805,14 @@ def phase_gather_kernels(spec, geo, rparams, dev, flush, peaks):
                  for name, (cb, ids, row_len) in r50.items()
                  if name.startswith(f"s{stage}b0.")]
         group_case(f"resnet50 s{stage}b0 bf16", items)
+    # one ViT-B/16 block's four projections, as memory mode decodes them
+    blk = vparams["vit_b16"]["blk0"]
+    group_case("vit_b16 blk0 bf16 (qkv, out, mlp1, mlp2)",
+               [(t(blk[name]["codebooks"], torch.bfloat16),
+                 t(blk[name]["assignments"]),
+                 blk[name]["codebooks"].shape[0]
+                 * blk[name]["codebooks"].shape[2])
+                for name in VIT_BLOCK_GEMMS])
     # one call each, flushed: what a launch costs whatever its size
     for name, (cb, ids, row_len) in zip(
             ALEXNET_CONVS, alexnet_decode_items(geo, spec, dev,
@@ -795,6 +831,10 @@ def phase_gather_kernels(spec, geo, rparams, dev, flush, peaks):
 # ResNet-50's convs that memory mode runs through pq_conv_fused: conv2 of
 # these blocks' stage, (block key, spatial size, such convs a forward)
 RESNET50_FUSED = (("s2b1", 14, 5), ("s3b1", 7, 2))
+# ViT/16 at 224x224: 196 patches and the class token, the rows a projection
+# sees per image; a block's four PQ GEMMs
+VIT_ROWS = 197
+VIT_BLOCK_GEMMS = ("qkv", "out", "mlp1", "mlp2")
 
 
 def phase_other_kernels(spec, geo, dev, flush, peaks):
@@ -1001,7 +1041,7 @@ CONV_RAGGED = ((3, 9, 11, 32, 128, 3, 1, 8, 32, 4),
                (5, 8, 8, 300, 200, 3, 1, 75, 128, 4))
 
 
-def phase_fused_kernels(spec, geo, rparams, dev, flush, peaks):
+def phase_fused_kernels(spec, geo, rparams, vparams, dev, flush, peaks):
     """Phases 3 and 4 for the two decode-GEMMs: pq_fc_fused at AlexNet fc6-8
     (B=256, the main path's batch, summed into the kernel's row; B=3, 64 and
     1024, the ends of its route) and pq_conv_fused at ResNet-50's two fused
@@ -1182,6 +1222,18 @@ def phase_fused_kernels(spec, geo, rparams, dev, flush, peaks):
             if plan.variant != "wgmma":
                 raise AssertionError(f"pq_fc_fused {name} B={b}: the main "
                                      f"path's shape planned {plan.variant}")
+    # --- pq_fc_fused at ViT-L/16's MLP GEMMs: one image's 197 rows, as
+    # memory mode runs them at B=1 (48 launches a forward)
+    vit_l = vparams["vit_l16"]["blk0"]
+    for name in ("mlp1", "mlp2"):
+        params = dev_params(vit_l[name])
+        s, _, d = params["codebooks"].shape
+        plan = fc_case(VIT_ROWS, s * d, params,
+                       f"vit_l16 {name} B=1 rows={VIT_ROWS}", fu,
+                       timed_into=True)
+        if plan.variant != "wgmma":
+            raise AssertionError(f"pq_fc_fused vit_l16 {name}: the main "
+                                 f"path's shape planned {plan.variant}")
     for b, cin, cout, s, k, d in FC_ODD:
         plan = fc_case(b, cin, random_params((cout, s), s, k, d),
                        f"odd B={b} Cin={cin} Cout={cout} S={s} K={k} D={d}",
@@ -1444,6 +1496,69 @@ def check_f32_conv(dev) -> None:
         f"{torch.backends.cudnn.allow_tf32} (torch's default)")
     if not err <= 1e-5:
         raise AssertionError(f"conv_dense f32: rel err {err} against f64")
+
+
+def vit_block_f64(x, blk, heads: int):
+    """One ViT block in float64, written out here: the oracle of
+    check_f32_vit_block, not the package's code."""
+    import math
+
+    import torch.nn.functional as F
+
+    def ln(v, p):
+        mu = v.mean(-1, keepdim=True)
+        var = ((v - mu) ** 2).mean(-1, keepdim=True)
+        return ((v - mu) / torch.sqrt(var + 1e-6) * p["scale"].double()
+                + p["shift"].double())
+
+    def gemm(v, p):
+        return v @ p["weight"].double() + p["bias"].double()
+
+    b, n, d = x.shape
+    hd = d // heads
+    qkv = gemm(ln(x, blk["ln1"]), blk["qkv"])
+    q, k, v = (t.reshape(b, n, heads, hd).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    att = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1)
+    x = x + gemm((att @ v).transpose(1, 2).reshape(b, n, d), blk["out"])
+    y = F.gelu(gemm(ln(x, blk["ln2"]), blk["mlp1"]))
+    return x + gemm(y, blk["mlp2"])
+
+
+def check_f32_vit_block(dev, vparams) -> None:
+    """One ViT-B/16 block in float32 (decode at load, B=2, 197 tokens) with
+    TF32 allowed for float32 matmuls (torch.set_float32_matmul_precision
+    ("high")) against the block in float64: the package runs its float32
+    matmuls in IEEE float32 itself. A plain float32 matmul of the block's
+    qkv GEMM under the same setting is logged beside it."""
+    from qcnn_tpu_torch.models import common, vit
+
+    spec = vit.vit_b16()
+    blk = vit.prepare_params(spec, {"blk0": vparams["vit_b16"]["blk0"]},
+                             dtype=torch.float32, device=dev)["blk0"]
+    gen = torch.Generator(device=dev).manual_seed(37)
+    x = torch.randn((2, VIT_ROWS, spec.dim), generator=gen, device=dev)
+    w = blk["qkv"]["weight"]
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = vit._run_block(x, blk, spec, common.make_cast(torch.float32),
+                             torch.float32)
+        direct = x @ w
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    want = vit_block_f64(x.double(), blk, spec.heads)
+    err = ((got.double() - want).abs().max() / want.abs().max()).item()
+    exact = x.double() @ w.double()
+    err_direct = ((direct.double() - exact).abs().max()
+                  / exact.abs().max()).item()
+    log(f"check vit_b16 block f32 (2,197,768) against f64: rel_err="
+        f"{err:.3e} (limit 1e-5); x @ W_qkv in f32 with TF32 allowed "
+        f"rel_err={err_direct:.3e}; float32_matmul_precision during the "
+        f"check 'high', default {prev!r}")
+    if not err <= 1e-5:
+        raise AssertionError(f"vit block f32: rel err {err} against f64")
 
 
 def int8_gemm_probe(dev) -> None:
@@ -2003,6 +2118,128 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
     return counts
 
 
+# phase 10: (run, model, mode, batches, launches a forward); decode at load
+# and int8 run no kernel of the package
+VIT_RUNS = (
+    ("A", "vit_b16", "decode", (32, 1), {}),
+    ("B", "vit_b16", "memory", (32, 1), {"pq_decode": 14}),
+    ("E", "vit_b16", "int8", (32,), {}),
+    ("C", "vit_l16", "memory", (1,), {"pq_decode": 26, "pq_fc_fused": 48}),
+    ("D", "vit_l16", "decode", (1,), {}),
+)
+
+
+def phase_vit(dev, gpu_name, vparams) -> dict:
+    """Phase 10: full-width ViT-B/16 and ViT-L/16 (224x224, 1000 classes),
+    synthetic PQ params (seed 0), through build_family_forward: runs A-E
+    (VIT_RUNS) and F, a FamilyClassifier on a ViT-B/16 family checkpoint
+    written by the port. Every run is logged before a broken limit fails
+    the phase. Returns the launch counts of the paths that launch
+    kernels."""
+    import tempfile
+
+    from qcnn_tpu_torch.eval import FamilyClassifier
+    from qcnn_tpu_torch.formats.checkpoint import (
+        save_family_checkpoint,
+        save_preprocessor,
+    )
+    from qcnn_tpu_torch.models import common, vit
+    from qcnn_tpu_torch.preproc import TorchPreprocessor, encode_bmp24
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x_all = torch.randn((32, 224, 224, 3), generator=gen, device=dev)
+    probs, logits, counts = {}, {}, {}
+    for run, model, mode, batches, per_fwd in VIT_RUNS:
+        spec = vit.VITS[model]()
+        t0 = time.perf_counter()
+        prepared, fwd_fn, act = common.build_family_forward(
+            "vit", spec, vparams[model], memory=mode == "memory",
+            compute_dtype=torch.int8 if mode == "int8" else torch.bfloat16,
+            device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        for b in batches:
+            x = x_all[:b]
+            probs[(run, b)], run_counts = drive(
+                f"{model} {mode} B={b} (run {run})",
+                lambda: fwd_fn(prepared, x), b, spec.num_classes,
+                steps=10 if b > 1 else 30, per_fwd=per_fwd,
+                gpu_name=gpu_name, resident=tensor_bytes(prepared),
+                prep_s=prep_s)
+            if run in ("A", "E") and b == 32:
+                logits[run] = vit.forward(prepared, x, spec=spec,
+                                          compute_dtype=act,
+                                          device=dev).float()
+            if per_fwd:
+                add_counts(counts.setdefault(f"{model} {mode}", {}),
+                           run_counts)
+        del prepared, fwd_fn
+        torch.cuda.empty_cache()
+
+    failed = []
+    for ref, got, b, label in (("A", "B", 32, "vit_b16"),
+                               ("A", "B", 1, "vit_b16"),
+                               ("D", "C", 1, "vit_l16")):
+        try:
+            agree(f"{label} memory vs decode at load B={b} (runs {got} vs "
+                  f"{ref})", probs[(ref, b)], probs[(got, b)], 5e-3, 0.99)
+        except AssertionError as e:
+            failed.append(str(e))
+    ref, got = logits["A"], logits["E"]
+    rel = ((got - ref).norm() / ref.norm()).item()
+    top1 = (ref.argmax(1) == got.argmax(1)).float().mean().item()
+    log(f"e2e vit_b16 int8 vs bf16 decode at load B=32 (runs E vs A): "
+        f"rel_l2(logits)={rel:.4e} (limit 0.2) top1_agreement={top1:.4f} "
+        f"max|dlogit|/max|logit|="
+        f"{((got - ref).abs().max() / ref.abs().max()).item():.4e}")
+    if not rel <= 0.2:
+        failed.append(f"vit_b16 int8 vs bf16: rel L2 {rel} > 0.2")
+
+    # run F: a ViT-B/16 family checkpoint written by the port, 16 BMPs
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(9)
+        paths = []
+        for i in range(IO_FAMILY_BMPS):
+            h, w = IO_BMP_SIZES[i % len(IO_BMP_SIZES)]
+            paths.append(os.path.join(d, f"image{i}.BMP"))
+            with open(paths[-1], "wb") as f:
+                f.write(encode_bmp24(rng.integers(0, 256, (h, w, 3),
+                                                  dtype=np.uint8)))
+        ck = os.path.join(d, "vit_b16")
+        t0 = time.perf_counter()
+        save_family_checkpoint(ck, "vit", vit.VITS["vit_b16"](),
+                               vparams["vit_b16"])
+        save_preprocessor(ck, TorchPreprocessor.imagenet())
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fam = FamilyClassifier.from_checkpoint(ck, memory=True)
+        torch.cuda.synchronize()
+        nbytes = sum(os.path.getsize(os.path.join(ck, f))
+                     for f in os.listdir(ck))
+        log(f"io vit_b16 family checkpoint {nbytes} bytes: save seconds="
+            f"{save_s:.3f}, FamilyClassifier.from_checkpoint (memory) "
+            f"seconds={time.perf_counter() - t0:.3f}")
+        label = f"vit_b16 family classify_batch memory B={IO_FAMILY_BMPS}"
+        counts["io vit_b16 family"] = io_drive(
+            f"{label} (run F)", fam, lambda: fam.classify_batch(paths), 3,
+            {"pq_decode": 14}, IO_FAMILY_BMPS)
+        x_in = fam.pre.load_batch(paths)
+        profile_steps(lambda: fam._probs(x_in), 3, f"{label} forward (run F)")
+        got = torch.from_numpy(fam._probs(x_in))
+        del fam
+        dec = FamilyClassifier.from_checkpoint(ck, memory=False)
+        try:
+            agree(f"io vit_b16 family memory vs decode at load "
+                  f"B={IO_FAMILY_BMPS} (run F)",
+                  torch.from_numpy(dec._probs(x_in)), got, 5e-3, 0.99)
+        except AssertionError as e:
+            failed.append(str(e))
+        del dec
+    if failed:
+        raise AssertionError("phase 10: " + "; ".join(failed))
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(
         description="Chip smoke of the PyTorch + CUDA port on one card.")
@@ -2021,6 +2258,9 @@ def main() -> int:
     only.add_argument("--only-io", action="store_true",
                       help="stop after the build, the f32 conv check and "
                            "phase 9 (files to top-5)")
+    only.add_argument("--only-vit", action="store_true",
+                      help="stop after the build, the f32 checks and "
+                           "phase 10 (ViT)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
@@ -2037,7 +2277,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(
         args.root or os.path.dirname(os.path.abspath(__file__))))
-    from qcnn_tpu_torch.models import resnet, synth, zoo
+    from qcnn_tpu_torch.models import resnet, synth, vit, zoo
     from qcnn_tpu_torch.ops import cuda as cuda_ops
     from qcnn_tpu_torch.ops.cuda import _build
 
@@ -2068,6 +2308,15 @@ def main() -> int:
         phase_gather_times(geo, spec, dev, flush)
         return 0
     check_f32_conv(dev)
+    t0 = time.perf_counter()
+    vparams = {model: synth.random_vit_pq_params(vit.VITS[model](), seed=0)
+               for model in ("vit_b16", "vit_l16")}
+    log(f"vit synthetic params seconds={time.perf_counter() - t0:.2f}")
+    check_f32_vit_block(dev, vparams)
+    if args.only_vit:
+        counts = phase_vit(dev, gpu_name, vparams)
+        log(json.dumps({"partial": "vit only", "launches": counts}))
+        return 0
     if args.only_lut_lrn:
         rows = phase_kernels(geo, spec, dev, flush, peaks)
         rows |= phase_other_kernels(spec, geo, dev, flush, peaks)[0]
@@ -2085,18 +2334,20 @@ def main() -> int:
         log(json.dumps({"partial": "int8 only", "launches": counts}))
         return 0
     if args.only_gather:
-        rows = phase_gather_kernels(spec, geo, rparams, dev, flush, peaks)
+        rows = phase_gather_kernels(spec, geo, rparams, vparams, dev, flush,
+                                    peaks)
         log(json.dumps({"partial": "gather kernels only", "rows": rows}))
         return 0
 
     # phases 3-4: kernels vs plain versions, then timed; lrn_fused's and
     # the general kernels' own entry points
-    rows, general_counts = phase_fused_kernels(spec, geo, rparams, dev,
-                                               flush, peaks)
+    rows, general_counts = phase_fused_kernels(spec, geo, rparams, vparams,
+                                               dev, flush, peaks)
     if args.only_fused:
         log(json.dumps({"partial": "fused kernels only", "rows": rows}))
         return 0
-    rows |= phase_gather_kernels(spec, geo, rparams, dev, flush, peaks)
+    rows |= phase_gather_kernels(spec, geo, rparams, vparams, dev, flush,
+                                 peaks)
     rows |= phase_kernels(geo, spec, dev, flush, peaks)
     new_rows, lrn_counts, more_general = phase_other_kernels(
         spec, geo, dev, flush, peaks)
@@ -2112,15 +2363,20 @@ def main() -> int:
                                                peaks, gpu_name)
     # phase 9: from files to top-5
     counts |= phase_io(spec, params, rparams, dev, smi)
+    # phase 10: the ViT family
+    counts |= phase_vit(dev, gpu_name, vparams)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
     owners = {  # the paths that own each kernel
         "pq_decode": ("alexnet memory", "resnet50 memory",
-                      "io alexnet classify", "io resnet50 family"),
+                      "io alexnet classify", "io resnet50 family",
+                      "vit_b16 memory", "vit_l16 memory",
+                      "io vit_b16 family"),
         "pq_lut_gather": ("alexnet memory", "alexnet int8 memory",
                           "io alexnet classify batch_hint=1"),
         "pq_fc_fused": ("alexnet memory", "alexnet int8 memory",
-                        "io alexnet classify", "io alexnet evaluate_dataset"),
+                        "io alexnet classify", "io alexnet evaluate_dataset",
+                        "vit_l16 memory"),
         "lrn_fused": ("lrn_fused entry point",),
         "pq_conv_fused": ("resnet50 memory", "io resnet50 family"),
         "pq_fc": ("alexnet pallas",),

@@ -252,9 +252,9 @@ class Classifier(_ClassifierBase):
 
 class FamilyClassifier(_ClassifierBase):
     """Classify surface for the nested-dict model families
-    (models/resnet.py) — the family analogue of Classifier, fed by
-    checkpoints whose embedded preprocessing is the torch-style
-    TorchPreprocessor. The ViT family raises naming ROADMAP.md A9."""
+    (models/resnet.py, models/vit.py) — the family analogue of Classifier,
+    fed by checkpoints whose embedded preprocessing is the torch-style
+    TorchPreprocessor."""
 
     def __init__(
         self,

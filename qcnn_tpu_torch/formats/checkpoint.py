@@ -146,20 +146,18 @@ def _read_arrays(path: str):
 
 
 # ---------------------------------------------------------------------------
-# Family checkpoints (ResNet): nested-dict params + dataclass spec
+# Family checkpoints (ResNet, ViT): nested-dict params + dataclass spec
 # ---------------------------------------------------------------------------
 
 # module:class of each family's spec, imported by name on load; the port's
 # own modules (the JAX package's table names its own)
 _FAMILY_SPECS = {
     "resnet": "qcnn_tpu_torch.models.resnet:ResNetSpec",
+    "vit": "qcnn_tpu_torch.models.vit:ViTSpec",
 }
 
 
 def _check_family(family: str) -> None:
-    if family.startswith("vit"):
-        raise NotImplementedError(
-            "the ViT family is not ported yet: ROADMAP.md A9")
     if family not in _FAMILY_SPECS:
         raise ValueError(f"unknown family {family!r}")
 
@@ -196,8 +194,8 @@ def _unflatten(flat: dict) -> dict:
 
 def save_family_checkpoint(path: str, family: str, spec, params: dict,
                            *, store: str = "npz") -> None:
-    """Checkpoint for the nested-dict model families (models/resnet.py).
-    Assignments are bit-packed like the linear format."""
+    """Checkpoint for the nested-dict model families (models/resnet.py,
+    models/vit.py). Assignments are bit-packed like the linear format."""
     _check_family(family)
     os.makedirs(path, exist_ok=True)
     flat = _flatten(params)

@@ -6,7 +6,7 @@ the same program for the same model and batch. The thresholds below were
 measured on a TPU (qcnn_tpu/models/common.py:20-66) and are not facts about
 the H100: re-deriving them on the card is queued in ROADMAP.md A7b.
 
-MEMORY_IMPL is the PQ conv strategy of the families (ResNet) when their
+MEMORY_IMPL is the PQ conv strategy of the ResNet family when its
 params still carry codebooks: "memory_fused" runs the fused decode-conv
 kernel where ``ops.conv.memory_fused_route`` qualifies the geometry and the
 in-step OHWI decode elsewhere. MEMORY_FC_IMPL selects the FC formulation;
@@ -25,7 +25,7 @@ from qcnn_tpu_torch.models import prepare
 
 MEMORY_IMPL = "memory_fused"
 MEMORY_FC_IMPL = "auto"
-FAMILIES = ("resnet",)
+FAMILIES = ("resnet", "vit")
 
 
 def fc_memory_impl(batch: int, params: dict, dtype=None) -> str:
@@ -58,7 +58,7 @@ def serving_defaults(model: str) -> dict:
     """Per-family serving config {max_batch, buckets}, copied from the JAX
     package. Its ladders come from batch sweeps on a TPU
     (qcnn_tpu/models/common.py:69-102) and were not measured on the H100;
-    ROADMAP.md A9 queues that."""
+    ROADMAP.md A10 queues that."""
     m = model.lower()
     if m.startswith("vit"):
         return {"max_batch": 32, "buckets": (1, 8, 32)}
@@ -84,16 +84,13 @@ def build_family_forward(family, spec, params, *, memory=False,
     default, the int8 -> bf16 activation rule, prepare, and the
     softmax-emitting partial forward (qcnn_tpu/models/common.py:131-147).
 
-    family: a registry name ('resnet') or the module itself.
+    family: a registry name ('resnet', 'vit') or the module itself.
     compute_dtype: torch.float32, torch.bfloat16 or torch.int8 (int8
       weights, bf16 activations); None means bf16 on the card and f32 on
       the CPU, as the JAX package picks bf16 on its accelerator.
     device: None means "cuda"; pass "cpu" to run the plain versions.
     Returns (prepared_params, forward_fn(params, x), act_dtype)."""
     if isinstance(family, str):
-        if family.startswith("vit"):
-            raise NotImplementedError(
-                "the ViT family is not ported yet: ROADMAP.md A9")
         if family not in FAMILIES:
             raise ValueError(f"unknown model family {family!r}; expected "
                              f"one of {FAMILIES}")

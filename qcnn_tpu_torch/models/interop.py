@@ -4,9 +4,9 @@
 PQ or as ``prepare_params`` of ``qcnn_tpu/models/prepare.py`` returns
 them — into the port's; ``family_params_from_jax`` does the same for the
 nested dict of a model family (``prepare_params`` or ``quantize_params``
-of ``qcnn_tpu/models/resnet.py``), int8 ones included. Neither imports JAX or
-ml_dtypes: a bfloat16 NumPy array is recognised by its dtype's name and
-moved as its 16 bits.
+of ``qcnn_tpu/models/resnet.py`` and ``qcnn_tpu/models/vit.py``), int8
+ones included. Neither imports JAX or ml_dtypes: a bfloat16 NumPy array is
+recognised by its dtype's name and moved as its 16 bits.
 """
 
 from __future__ import annotations
@@ -80,11 +80,16 @@ def params_from_jax(params: Sequence[Optional[dict]],
 def family_params_from_jax(params: dict, device=None) -> dict:
     """The port's params for a ``qcnn_tpu`` family's nested dict: each
     layer dict (one whose values are arrays) comes across as in
-    :func:`params_from_jax`, and a block (a dict of layer dicts) keeps its
-    keys. device: None means "cuda"."""
+    :func:`params_from_jax`, a block (a dict of layer dicts) keeps its
+    keys, and a bare array (ViT's ``cls_token`` and ``pos_embed``) comes
+    across as a tensor of its dtype. A LayerNorm dict ({"scale",
+    "shift"}) is a layer dict whose ``scale`` comes across as float32, as
+    it is. device: None means "cuda"."""
     device = resolve_device(device)
 
-    def walk(p: dict) -> dict:
+    def walk(p):
+        if not isinstance(p, dict):
+            return array_to_tensor(p, device)
         if all(isinstance(v, dict) for v in p.values()):
             return {k: walk(v) for k, v in p.items()}
         return _layer_from_jax(p, device)

@@ -10,9 +10,9 @@ use 8-wide sub-spaces with 128 codewords; FC layers 4-wide with 32 codewords;
 a final classifier FC gets scalar sub-spaces with 16 codewords, matching
 fc8's (4096, 16, 1) codebook.
 
-``random_resnet_pq_params`` is the port's own: the ResNet family's PQ
-params come from the quantizer in the JAX package, which the port does not
-have yet.
+``random_resnet_pq_params`` and ``random_vit_pq_params`` are the port's
+own: the families' PQ params come from the quantizer in the JAX package,
+which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -165,6 +165,53 @@ def random_resnet_pq_params(spec, seed: int = 0) -> dict:
         (rng.standard_normal((s, 32, d)) / np.sqrt(cin)).astype(np.float32),
         rng.integers(0, 32, size=(spec.num_classes, s), dtype=np.uint8),
         (rng.standard_normal(spec.num_classes) * 0.01).astype(np.float32))
+    return params
+
+
+def random_vit_pq_params(spec, seed: int = 0) -> dict:
+    """Synthetic PQ params for a ``models.vit.ViTSpec`` (NumPy), in the
+    layout and geometry of the JAX package's ``vit.quantize_params`` at its
+    defaults (``subvec_len=4``, ``num_codewords=32``): every GEMM gets D=4,
+    K=32 and S = ceil(Cin / 4); the LayerNorms, ``cls_token`` and
+    ``pos_embed`` stay dense, with the keys of ``vit.init_dense_params``.
+    Codewords are scaled by 1/sqrt(Cin), so decoded weights have
+    ``init_dense_params``' variance; biases, the LayerNorms' offsets from
+    (1, 0) and the class token are small and random, so that each reaches
+    the output."""
+    rng = np.random.default_rng(seed)
+    d, k = 4, 32
+
+    def gemm(cin, cout):
+        s = -(-cin // d)
+        return pq_fc_params(
+            (rng.standard_normal((s, k, d)) / np.sqrt(cin)).astype(np.float32),
+            rng.integers(0, k, size=(cout, s), dtype=np.uint8),
+            (rng.standard_normal(cout) * 0.01).astype(np.float32))
+
+    def ln(dim):
+        return {"scale": (1 + 0.05 * rng.standard_normal(dim)).astype(
+                    np.float32),
+                "shift": (0.02 * rng.standard_normal(dim)).astype(np.float32)}
+
+    dim = spec.dim
+    params: dict = {
+        "patch_embed": gemm(spec.patch * spec.patch * 3, dim),
+        "cls_token": (0.02 * rng.standard_normal((1, 1, dim))).astype(
+            np.float32),
+        "pos_embed": (0.02 * rng.standard_normal((1, spec.seq_len, dim))
+                      ).astype(np.float32),
+        "head": gemm(dim, spec.num_classes),
+        "ln_final": ln(dim),
+    }
+    for i in range(spec.depth):
+        params[f"blk{i}"] = {
+            "ln1": ln(dim),
+            "qkv": gemm(dim, 3 * dim),
+            "out": gemm(dim, dim),
+            "ln2": ln(dim),
+            "mlp1": gemm(dim, spec.mlp_ratio * dim),
+            "mlp2": gemm(spec.mlp_ratio * dim, dim),
+        }
     return params
 
 

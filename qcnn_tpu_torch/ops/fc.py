@@ -20,6 +20,8 @@ in int32 by :func:`int8_matmul`, which is cuBLASLt's int8 GEMM
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from qcnn_tpu_torch.ops import lut as lut_ops
@@ -49,15 +51,29 @@ def check_gdecode_codewords(codebooks: torch.Tensor) -> None:
             f"of lanes); got K={k}")
 
 
-def _matmul(x: torch.Tensor, weight: torch.Tensor, out_dtype) -> torch.Tensor:
-    """x @ weight in the weight's dtype with float32 sums, emitted in
-    ``out_dtype`` (float32 when None), as ``jnp.dot(...,
-    preferred_element_type=out_dtype or f32)``."""
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 matmuls inside run in IEEE float32, whatever the caller's
+    global setting (``torch.set_float32_matmul_precision``): TF32 would
+    round their operands to 10 mantissa bits."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def matmul(x: torch.Tensor, weight: torch.Tensor, out_dtype) -> torch.Tensor:
+    """x @ weight (batched as ``torch.matmul``) in the weight's dtype with
+    float32 sums, emitted in ``out_dtype`` (float32 when None), as
+    ``jnp.dot(..., preferred_element_type=out_dtype or f32)``."""
     out_dtype = out_dtype or torch.float32
-    if out_dtype == weight.dtype:
+    if out_dtype == weight.dtype and weight.dtype != torch.float32:
         return torch.matmul(x, weight)
-    # widen exactly, sum in f32, round once
-    return torch.matmul(x.float(), weight.float()).to(out_dtype)
+    # widen exactly, sum in f32 without TF32, round once
+    with _no_tf32():
+        return torch.matmul(x.float(), weight.float()).to(out_dtype)
 
 
 def fc_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -75,7 +91,7 @@ def fc_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         )
     if x.dtype != weight.dtype:
         x = x.to(weight.dtype)
-    out = _matmul(x, weight, out_dtype)
+    out = matmul(x, weight, out_dtype)
     return out + bias.to(out.dtype)
 
 
@@ -234,21 +250,43 @@ def pq_fc_decode(x: torch.Tensor, params: dict, out_dtype=None) -> torch.Tensor:
     return fc_dense(x, w, params["bias"], out_dtype=out_dtype)
 
 
-def pq_fc_indecode(x: torch.Tensor, params: dict,
-                   out_dtype=None) -> torch.Tensor:
+def pq_fc_indecode(x: torch.Tensor, params: dict, out_dtype=None,
+                   decoded: torch.Tensor | None = None) -> torch.Tensor:
     """Memory-mode PQ FC: decode the dense weight inside the step with the
     ``pq_decode`` kernel, then the dense GEMM. Only the compressed params
-    stay resident; the dense copy is a transient."""
-    w = pq_decode.decode_fc_weight_gather(
-        params["codebooks"], params["assignments"], x.shape[-1])
-    return fc_dense(x, w, params["bias"], out_dtype=out_dtype)
+    stay resident; the dense copy is a transient.
+
+    decoded: the layer's (Cout, Cin) rows from a grouped decode
+    (:func:`instep_decodes`) in place of its own launch."""
+    if decoded is None:
+        decoded = pq_decode.decode_rows(params["codebooks"],
+                                        params["assignments"], x.shape[-1])
+    return fc_dense(x, decoded.t(), params["bias"], out_dtype=out_dtype)
+
+
+def instep_decodes(fcs: dict) -> dict:
+    """Decode, in one ``pq_decode`` launch, every FC of a group that runs
+    an in-step decode impl ('indecode', 'gdecode').
+
+    fcs: {key: (params, impl, Cin)}; entries with another impl are
+    skipped. Returns {key: (Cout, Cin) rows} to hand to :func:`pq_fc` as
+    ``decoded``. The weights of the group live until the caller drops the
+    dict."""
+    keys = [key for key, (_, impl, _) in fcs.items()
+            if impl in ("indecode", "gdecode")]
+    rows = pq_decode.decode_rows_many(
+        [(fcs[key][0]["codebooks"], fcs[key][0]["assignments"], fcs[key][2])
+         for key in keys])
+    return dict(zip(keys, rows))
 
 
 def pq_fc(x: torch.Tensor, params: dict, impl: str = "onehot",
-          out_dtype=None) -> torch.Tensor:
+          out_dtype=None, decoded: torch.Tensor | None = None
+          ) -> torch.Tensor:
     """PQ FC by strategy name. out_dtype: the dtype emitted by the one-hot
     and decode-GEMM impls; the gather and kernel impls emit float32 and the
-    caller casts."""
+    caller casts. decoded: the layer's rows from :func:`instep_decodes`,
+    for the in-step decode impls."""
     if "perm" in params:
         # OPQ input permutation (quantizer/opq.py): sub-spaces were fit on
         # w[:, perm], so every in-graph formulation consumes x[..., perm]
@@ -265,7 +303,8 @@ def pq_fc(x: torch.Tensor, params: dict, impl: str = "onehot",
         # run the pq_decode kernel here
         if impl == "gdecode":
             check_gdecode_codewords(params["codebooks"])
-        return pq_fc_indecode(x, params, out_dtype=out_dtype)
+        return pq_fc_indecode(x, params, out_dtype=out_dtype,
+                              decoded=decoded)
     if impl == "pallas":
         return pq_fc_kernel.pq_fc_pallas(x, params)
     if impl == "lutgather":

@@ -237,8 +237,8 @@ class Preprocessor:
 @dataclasses.dataclass
 class TorchPreprocessor:
     """torch-ecosystem ImageNet inference preprocessing, for the family
-    models ingested from torchvision/timm checkpoints (the JAX package's
-    models/torch_import.py; ROADMAP.md A9 here): RGB channel order, aspect-preserving
+    models ingested from torchvision/timm checkpoints
+    (``models.torch_import``): RGB channel order, aspect-preserving
     shorter-side bilinear resize (half-pixel convention), center crop,
     scale to [0, 1], per-channel mean/std normalize.
 

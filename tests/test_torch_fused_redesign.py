@@ -95,6 +95,19 @@ def test_plan_fc_alexnet_takes_the_wgmma_kernel(layer, b):
         assert plan.splits > 1
 
 
+@pytest.mark.parametrize("images", [1, 2, 5])
+@pytest.mark.parametrize("cin,cout", [(1024, 4096), (4096, 1024)])
+def test_plan_fc_vit_l16_mlp_takes_the_wgmma_kernel(cin, cout, images):
+    """ViT-L/16's mlp1 and mlp2 at 197 rows an image: the rows that memory
+    mode routes to pq_fc_fused (up to 5 images, 985 rows)."""
+    rows = chip_smoke.VIT_ROWS * images
+    plan = pq_fc_fused.plan(rows, cin, cout, cin // 4, 32, 4)
+    _check_wgmma_plan(plan, rows, cout, cin // 64, FC_TILES)
+    assert plan.tile_rows == 256
+    if images == 1:  # 1 row tile: the contraction is split to fill the card
+        assert plan.splits == {4096: 4, 1024: 16}[cout]
+
+
 @pytest.mark.parametrize("b", [1, 64])
 @pytest.mark.parametrize("geometry", sorted(RESNET_CONV))
 def test_plan_conv_resnet50_takes_the_wgmma_kernel(geometry, b):

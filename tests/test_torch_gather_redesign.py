@@ -182,6 +182,11 @@ def test_split_sum_is_the_same_bits_twice(rng):
     ("s0b0.conv1", 64, 16, 128, 4, 64, 2, "vector", 2, 1),
     ("s3b0.conv2", 4608, 128, 128, 4, 512, 2, "vector", 2, 288),
     ("resnet fc", 1000, 512, 32, 4, 2048, 2, "vector", 2, 250),
+    # ViT-B/16: a block's qkv and mlp2, the patch embedding, the head
+    ("vit qkv", 2304, 192, 32, 4, 768, 2, "vector", 2, 216),
+    ("vit mlp2", 768, 768, 32, 4, 3072, 2, "vector", 2, 288),
+    ("vit patch", 768, 192, 32, 4, 768, 2, "vector", 2, 72),
+    ("vit head", 1000, 192, 32, 4, 768, 2, "vector", 2, 94),
     # a row length that cuts a codeword, a codeword of 6 bytes, D=2 bf16
     ("cut row", 250, 15, 32, 4, 58, 2, "general", 0, 57),
     ("odd D", 40, 9, 16, 3, 27, 2, "general", 0, 5),

@@ -25,6 +25,7 @@ from qcnn_tpu.formats import checkpoint as jckpt
 from qcnn_tpu.models import network as jnet
 from qcnn_tpu.models import resnet as jresnet
 from qcnn_tpu.models import synth as jsynth
+from qcnn_tpu.models import vit as jvit
 from qcnn_tpu.models import zoo as jzoo
 from qcnn_tpu.models.loader import save_reference_model
 from qcnn_tpu.models.prepare import prepare_params as jprepare
@@ -35,6 +36,7 @@ from qcnn_tpu_torch.formats import write_bin
 from qcnn_tpu_torch.models import network as tnet
 from qcnn_tpu_torch.models import resnet as tresnet
 from qcnn_tpu_torch.models import synth as tsynth
+from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models.prepare import prepare_params as tprepare
 from qcnn_tpu_torch.preproc import encode_bmp24
 from qcnn_tpu_torch.utils.timing import StopWatch, TimerSet
@@ -200,8 +202,26 @@ def test_family_classifier_memory_matches_jax(ref_dir, tmp_path):
     np.testing.assert_array_equal(x, jclf.pre.load_batch(paths))
     assert np.abs(clf._probs(x) - np.asarray(jclf._fwd(
         jclf.params, jnp.asarray(x)))).max() <= 1e-6
-    with pytest.raises(NotImplementedError, match="A9"):
-        tharness.FamilyClassifier("vit", None, {}, clf.pre, device="cpu")
+    # the ViT family through the same surface, from a checkpoint of the
+    # JAX package's
+    vspec = dict(name="small", patch=8, image_size=32, dim=64, depth=2,
+                 heads=4, num_classes=10)
+    vck = str(tmp_path / "vit")
+    jckpt.save_family_checkpoint(vck, "vit", jvit.ViTSpec(**vspec),
+                                 tsynth.random_vit_pq_params(
+                                     tvit.ViTSpec(**vspec), seed=0))
+    jckpt.save_preprocessor(vck, jpipe.TorchPreprocessor.imagenet(
+        crop=32, resize=40))
+    for memory in (True, False):
+        vclf = tharness.FamilyClassifier.from_checkpoint(
+            vck, memory=memory, device="cpu")
+        jvclf = jharness.FamilyClassifier.from_checkpoint(vck,
+                                                          memory=memory)
+        assert vclf.family == "vit" and vclf.spec == tvit.ViTSpec(**vspec)
+        got, want = vclf.classify_batch(paths), jvclf.classify_batch(paths)
+        for g, w in zip(got, want):
+            assert g.class_ids[0] == w.class_ids[0]
+            assert max(abs(a - b) for a, b in zip(g.probs, w.probs)) <= 1e-6
 
 
 def _tiny(core):

@@ -14,12 +14,14 @@ import qcnn_tpu_torch.core as tcore
 from qcnn_tpu.formats import checkpoint as jckpt
 from qcnn_tpu.models import loader as jloader
 from qcnn_tpu.models import resnet as jresnet
+from qcnn_tpu.models import vit as jvit
 from qcnn_tpu.models import zoo as jzoo
 from qcnn_tpu.preproc import pipeline as jpipe
 from qcnn_tpu_torch.formats import checkpoint as tckpt
 from qcnn_tpu_torch.models import loader as tloader
 from qcnn_tpu_torch.models import resnet as tresnet
 from qcnn_tpu_torch.models import synth as tsynth
+from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models import zoo as tzoo
 from qcnn_tpu_torch.preproc import pipeline as tpipe
 
@@ -315,19 +317,24 @@ def test_unported_stores_and_families_raise_naming_the_roadmap(tmp_path):
     (d / "params_ts").mkdir()
     with pytest.raises(NotImplementedError, match="A13"):
         tckpt.load_checkpoint(str(d))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tckpt.save_family_checkpoint(str(tmp_path / "v"), "vit",
-                                     _small_resnet(tresnet), rparams)
-    # a ViT checkpoint written elsewhere: the family's spec class is ported
-    # in A9
-    v = tmp_path / "vit"
-    tckpt.save_family_checkpoint(str(v), "resnet", _small_resnet(tresnet),
-                                 rparams)
-    manifest = json.loads((v / "manifest.json").read_text())
-    manifest["family"] = "vit"
-    (v / "manifest.json").write_text(json.dumps(manifest))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tckpt.load_family_checkpoint(str(v))
+    # the ViT family is ported: a ViT checkpoint crosses both ways, with
+    # the same spec.json and manifest.json as the JAX package's
+    vparams = tsynth.random_vit_pq_params(tvit.vit_tiny_test(), seed=0)
+    vj, vt = tmp_path / "vj", tmp_path / "vt"
+    jckpt.save_family_checkpoint(str(vj), "vit", jvit.vit_tiny_test(),
+                                 vparams)
+    tckpt.save_family_checkpoint(str(vt), "vit", tvit.vit_tiny_test(),
+                                 vparams)
+    for name in ("spec.json", "manifest.json"):
+        assert (vj / name).read_text() == (vt / name).read_text(), name
+    assert json.loads((vt / "manifest.json").read_text())["family"] == "vit"
+    family, vspec, got = tckpt.load_family_checkpoint(str(vj))
+    jfamily, jspec, back = jckpt.load_family_checkpoint(str(vt))
+    assert family == jfamily == "vit"
+    assert type(vspec) is tvit.ViTSpec and vspec == tvit.vit_tiny_test()
+    assert jspec == jvit.vit_tiny_test()
+    _same_tree(got, vparams)
+    _same_tree(back, vparams)
     with pytest.raises(ValueError, match="unknown family"):
         tckpt.save_family_checkpoint(str(tmp_path / "x"), "vgg",
                                      _small_resnet(tresnet), rparams)

@@ -25,6 +25,7 @@ from qcnn_tpu_torch.models import (
     prepare,
     resnet,
     synth,
+    vit,
 )
 from qcnn_tpu_torch.models.interop import (
     family_params_from_jax,
@@ -49,7 +50,8 @@ def test_port_modules_import_no_jax_in_a_fresh_interpreter():
     mods = _port_modules()
     for name in ("ops.cuda.pq_fc_fused", "ops.cuda.pq_conv_fused",
                  "ops.cuda.pq_fc", "ops.cuda.lrn_fused", "models.resnet",
-                 "models.common", "models.synth", "models.interop",
+                 "models.vit", "models.torch_import", "models.common",
+                 "models.synth", "models.interop",
                  "models.calibrate", "models.loader", "native_build",
                  "formats.reference_codec", "formats.checkpoint",
                  "formats.native", "preproc.bmp", "preproc.pipeline",
@@ -218,6 +220,29 @@ def test_family_entry_points_never_run_on_the_cpu_unasked(monkeypatch):
     assert prepared["s0b0"]["conv1"]["kernel"].dtype == torch.float32
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resnet.forward(prepared, x, spec=spec)
+    out = fwd(prepared, x)
+    assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
+    # the ViT family, the same way
+    vspec = vit.ViTSpec("t", patch=8, image_size=16, dim=32, depth=1,
+                        heads=2, num_classes=3)
+    vparams = synth.random_vit_pq_params(vspec, seed=0)
+    for memory in (False, True):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            vit.prepare_params(vspec, vparams, memory=memory)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            common.build_family_forward("vit", vspec, vparams,
+                                        memory=memory)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        common.build_family_forward("vit", vspec, vparams,
+                                    compute_dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        family_params_from_jax(vparams)
+    prepared, fwd, act = common.build_family_forward("vit", vspec, vparams,
+                                                     device="cpu")
+    assert act == torch.float32
+    assert prepared["blk0"]["qkv"]["weight"].dtype == torch.float32
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vit.forward(prepared, x, spec=vspec)
     out = fwd(prepared, x)
     assert out.shape == (1, 3) and np.allclose(out.sum().item(), 1.0)
 

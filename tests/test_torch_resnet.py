@@ -189,9 +189,9 @@ def test_forward_segments_compose_to_forward():
 
 
 def test_unported_parts_raise_naming_the_roadmap():
-    """The quantizer (A11) and ViT (A9) raise naming the ROADMAP; int8 is
-    ported: its prepare quantizes and build_family_forward runs it with
-    bf16 activations."""
+    """The quantizer (A11) raises naming the ROADMAP; int8 is ported: its
+    prepare quantizes and build_family_forward runs it with bf16
+    activations. ViT is ported: build_family_forward("vit") runs."""
     spec = tresnet.ResNetSpec(**SMALL["basic"])
     params = synth.random_resnet_pq_params(spec, seed=0)
     with pytest.raises(NotImplementedError, match="A11"):
@@ -205,8 +205,16 @@ def test_unported_parts_raise_naming_the_roadmap():
     assert act == torch.bfloat16
     probs = fwd(prepared, np.zeros((1, 32, 32, 3), np.float32))
     assert probs.shape == (1, 10) and torch.isfinite(probs).all()
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcommon.build_family_forward("vit", spec, params, device="cpu")
+    from qcnn_tpu_torch.models import vit as tvit
+
+    vspec = tvit.vit_tiny_test()
+    prepared, fwd, act = tcommon.build_family_forward(
+        "vit", vspec, synth.random_vit_pq_params(vspec, seed=0),
+        memory=True, device="cpu")
+    assert act == torch.float32 and tcommon.FAMILIES == ("resnet", "vit")
+    probs = fwd(prepared, np.zeros((2, 32, 32, 3), np.float32))
+    assert probs.shape == (2, 10) and torch.isfinite(probs).all()
+    torch.testing.assert_close(probs.sum(1), torch.ones(2))
     with pytest.raises(ValueError, match="unknown model family"):
         tcommon.build_family_forward("vgg", spec, params, device="cpu")
 
@@ -233,6 +241,46 @@ def test_family_interop_keeps_bf16_bits_and_layouts():
                     assert c.dtype == t.dtype and c.shape == t.shape, leaf
                     assert c.stride() == t.stride(), (name, key, leaf)
                     assert torch.equal(c, t), (name, key, leaf)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_family_interop_carries_vit_params(dtype):
+    """JAX-prepared ViT params carry across with their bits and the port's
+    layouts: the bare top-level ``cls_token`` and ``pos_embed`` arrays, a
+    LayerNorm's ``scale`` as float32 beside an int8 GEMM's per-channel
+    ``scale``, decode at load and memory mode."""
+    from qcnn_tpu.models import vit as jvit
+
+    from qcnn_tpu_torch.models import vit as tvit
+
+    jspec, tspec = jvit.vit_tiny_test(), tvit.vit_tiny_test()
+    params = synth.random_vit_pq_params(tspec, seed=0)
+    for memory in (False, True):
+        pj = jvit.prepare_params(jspec, params, dtype=getattr(jnp, dtype),
+                                 memory=memory)
+        carried = family_params_from_jax(pj, device="cpu")
+        ours = tvit.prepare_params(tspec, params,
+                                   dtype=getattr(torch, dtype),
+                                   memory=memory, device="cpu")
+
+        def same(c, t, where):
+            if isinstance(t, dict):
+                assert c.keys() == t.keys(), where
+                for key in t:
+                    same(c[key], t[key], f"{where}.{key}")
+                return
+            assert c.dtype == t.dtype and c.shape == t.shape, where
+            assert c.stride() == t.stride(), where
+            assert torch.equal(c, t), where
+
+        same(carried, ours, f"{dtype} memory={memory}")
+        np.testing.assert_array_equal(carried["cls_token"].numpy(),
+                                      params["cls_token"])
+        assert carried["pos_embed"].shape == (1, 17, 64)
+        assert carried["blk0"]["ln1"]["scale"].dtype == torch.float32
+        if dtype == "int8" and not memory:
+            assert carried["blk0"]["qkv"]["weight_q"].dtype == torch.int8
+            assert carried["blk0"]["qkv"]["scale"].shape == (192,)
 
 
 def test_prepare_takes_a_bare_top_level_conv():
