@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only-int8    # phases 1-2, the f32 conv check, 8
     python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
     python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
+    python3 chip_smoke.py --only-serve   # phases 1-2 and 11 (serving)
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
@@ -136,6 +137,36 @@ Phases, each fatal on failure (any exception exits non-zero):
       FamilyClassifier.from_checkpoint(memory=True) on 16 BMPs: pq_decode
       14 a call, held to memory=False.
 
+11. serving (serve/, cli.py), at full width from synthetic params (seed 0)
+   and files the port's own writers put in a temporary directory (phase
+   9's, plus an AlexNet-PQ checkpoint and a ResNet-50 family checkpoint):
+   pq_fc_fused at AlexNet fc6-8 with M = 1 and 8 rows (the buckets 1 and 8
+   of a max_batch=64 engine), held to its plain version and timed as in
+   phases 3-4. Then an AlexNet-PQ memory-mode bf16 engine on the JAX
+   package's ladder (1, 8, 32, 64) behind the HTTP server, driven
+   closed-loop by a client process (spawned; it imports no torch) at
+   concurrency 1, 8 and 64 with 64, 256 and 512 preprocessed float32
+   tensors, a profiled c=64 window, 64 BMP uploads and an in-process
+   drain of 512 submits: one 'serve' line each (req/s, client p50/p95/p99
+   ms, batches, mean batch, padded_waste, stage_ms, the compute-stage
+   latency_percentiles) and pq_decode 1 + pq_fc_fused 3 launches per
+   engine batch, exactly. Every answer is held to a Classifier (memory,
+   batch_hint=64) and to a decode-at-load engine on the same images. A
+   router over two AlexNet servers sends to both and, with one shut down,
+   every request still returns 200. A burst of 256 requests into an engine
+   with max_queue=8 (started once the burst is back) gives as many 503s as
+   stats['rejected']; X-Deadline-Ms 0.001 gives as many 504s as
+   stats['expired']. A ResNet-50 family checkpoint through
+   cli.family_engine_from_checkpoint (memory), 128 requests at c=32:
+   pq_conv_fused 7 + pq_decode 17 a batch, held to a FamilyClassifier.
+   `python -m qcnn_tpu_torch serve --checkpoint ... --memory-mode` runs as
+   a process and answers /healthz within 120 s and one BMP; `python -m
+   qcnn_tpu_torch classify` runs on two BMPs with rc 0. The warm forward
+   of both engines at B = 1, 8, 16, 32, 64, 128 ('ladder' lines: ms a
+   batch, median of 3). Last, stop() with 256 requests in flight leaves no
+   future unresolved after 5 s. Every run is logged before a broken limit
+   fails the phase.
+
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
   (wgmma and general kernels) 1e-4 and pq_fc 1e-5 of the largest |output|
@@ -177,11 +208,17 @@ Limits (the script fails past them):
   logits <= 0.2, the JAX package's own bound for its family int8
   (tests/test_model_families.py); the top-1 agreement is logged.
 - the f32 ViT block against float64: 1e-5 of the largest |output|.
+- phase 11: pq_fc_fused at M = 1 and 8 at phase 3's 1e-4; each answer's
+  top-5 probabilities against the reference's at the same ids, and its
+  top-1: AlexNet max |dprob| <= 1e-2 and top-1 equal on >= 99 % (against
+  the Classifier and against the decode-at-load engine), ResNet-50 5e-3
+  and 99 %; launch counts exact; the status counts as above.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
---only-io, --only-vit or --gather-times it stops early and prints neither.
+--only-io, --only-vit, --only-serve or --gather-times it stops early and
+prints neither.
 """
 
 from __future__ import annotations
@@ -194,7 +231,9 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+# torch is imported under the __main__ check at the end: phase 11's client
+# processes import this file as a module, and load the server without it
 
 # Published dense peaks (NVIDIA data sheets, SXM parts): bytes/s of device
 # memory and operations/s by type.
@@ -2240,6 +2279,635 @@ def phase_vit(dev, gpu_name, vparams) -> dict:
     return counts
 
 
+# phase 11: serving. The AlexNet engine takes serving_defaults' ladder (the
+# JAX package's); (concurrency, requests) of its closed-loop runs; the
+# buckets whose warm forward is timed; the ResNet-50 run
+SERVE_LADDER = (1, 8, 32, 64)
+SERVE_RUNS = ((1, 64), (8, 256), (64, 512))
+SERVE_PROFILED = (64, 256)
+SERVE_TIMED_BUCKETS = (1, 8, 16, 32, 64, 128)
+SERVE_RESNET = (32, 128)
+SERVE_BURST, SERVE_QUEUE = 256, 8
+
+
+def serve_client(url: str, payloads, concurrency: int, requests: int,
+                 headers=None) -> dict:
+    """Closed-loop HTTP load from a child process (spawned: it imports this
+    file as a module, where torch is not imported, so the clients' Python
+    does not share the server's GIL). `payloads`: a .npy of preprocessed
+    images sent as X-Shape tensors, or a list of BMP paths sent as bodies;
+    request i sends payload i % len. `concurrency` threads each keep one
+    request outstanding until `requests` have been sent. Returns the wall
+    seconds and, per request, (payload index, status, client ms, body)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    if isinstance(payloads, str):
+        images = np.load(payloads)
+        bodies = [(img.tobytes(), {"X-Shape": ",".join(map(str, img.shape))})
+                  for img in images]
+    else:
+        bodies = []
+        for path in payloads:
+            with open(path, "rb") as f:
+                bodies.append((f.read(), {}))
+    results = [None] * requests
+    next_i = iter(range(requests))
+    lock = threading.Lock()
+
+    def worker() -> None:
+        while True:
+            with lock:
+                i = next(next_i, None)
+            if i is None:
+                return
+            body, hdr = bodies[i % len(bodies)]
+            req = urllib.request.Request(
+                url, data=body, method="POST",
+                headers={**hdr, **(headers or {})})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    status, data = r.status, r.read()
+            except urllib.error.HTTPError as e:
+                status, data = e.code, e.read()
+            results[i] = (i % len(bodies), status,
+                          (time.perf_counter() - t0) * 1e3, json.loads(data))
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"wall_s": time.perf_counter() - t0, "results": results,
+            "torch_in_client": "torch" in sys.modules}
+
+
+def serve_fc_check(geo, spec, dev, peaks) -> float:
+    """pq_fc_fused at AlexNet fc6-8 with M = 1 and 8 rows, the batches that
+    buckets 1 and 8 of a max_batch=64 engine give it (fgather resolves for
+    every bucket): against the plain version at 1e-4 of the largest
+    |output| (both decode names), a split contraction twice to the same
+    bits, then timed. Returns the largest error."""
+    from qcnn_tpu_torch.ops import lut as lut_ops
+    from qcnn_tpu_torch.ops.cuda import pq_fc_fused
+
+    gen = np.random.default_rng(17)
+    shapes = spec.feature_shapes(batch=1)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for b in (1, 8):
+        for name in ALEXNET_FCS:
+            i, _, p = geo[name]
+            _, h, w, c = shapes[i]
+            cin = h * w * c
+            params = {
+                "codebooks": torch.from_numpy(p["codebooks"]).to(
+                    dev, torch.bfloat16),
+                "assignments": torch.from_numpy(p["assignments"]).to(dev),
+                "bias": torch.from_numpy(p["bias"]).to(dev, torch.float32)}
+            cb, ids, bias = (params["codebooks"], params["assignments"],
+                             params["bias"])
+            s, k, d = cb.shape
+            cout = ids.shape[0]
+            x = torch.from_numpy(gen.standard_normal((b, cin))).to(
+                dev, torch.bfloat16)
+            plan = pq_fc_fused.plan(b, cin, cout, s, k, d)
+            want = pq_fc_fused.fused_plain(x, cb, ids, bias)
+            scale = max(1e-6, want.abs().max().item())
+            label = f"{name} B={b} (serving bucket {b})"
+            for decode in pq_fc_fused.DECODES:
+                got = pq_fc_fused.pq_fc_fused(x, params, decode=decode)
+                err = (got - want).abs().max().item()
+                log(f"check pq_fc_fused {label} decode={decode} "
+                    f"kernel={plan.variant} max_abs_err={err:.3e} "
+                    f"(rtol 1e-4 of {scale:.3e})")
+                if not err <= 1e-4 * scale:
+                    raise AssertionError(f"pq_fc_fused {label}: max_abs_err "
+                                         f"{err} > 1e-4 x {scale}")
+                worst = max(worst, err)
+            if plan.splits > 1:
+                first = pq_fc_fused.pq_fc_fused(x, params)
+                second = pq_fc_fused.pq_fc_fused(x, params)
+                torch.cuda.synchronize()
+                if not torch.equal(first, second):
+                    raise AssertionError(f"pq_fc_fused {label}: two launches "
+                                         f"of the {plan.splits}-way split "
+                                         "differ")
+                log(f"check pq_fc_fused {label} splits={plan.splits} two "
+                    "launches bit-identical")
+            w_io = lut_ops.decode_fc_weight(cb, ids, cin).contiguous()
+            ms = time_ms(lambda: pq_fc_fused.pq_fc_fused(x, params), flush)
+            plain = time_ms(lambda: pq_fc_fused.fused_plain(x, cb, ids, bias),
+                            flush, reps=10)
+            lib = time_ms(lambda: torch.matmul(x, w_io), flush)
+            nbytes = (b * cin * 2 + cout * s + s * k * d * 2 + cout * 4
+                      + b * cout * 4)
+            b_ms, by = bound(nbytes, 2 * b * cin * cout, peaks["bf16"], peaks)
+            log(f"time pq_fc_fused {label} kernel={plan.variant} "
+                f"tile_rows={plan.tile_rows} splits={plan.splits} "
+                f"grid={plan.grid} smem={plan.smem_bytes} kernel_ms={ms:.5f} "
+                f"plain_ms={plain:.5f} library_ms={lib:.5f} "
+                f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes})")
+    return worst
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stats_snapshot(engine) -> dict:
+    return {**engine.stats, "stage_ms": dict(engine.stats["stage_ms"])}
+
+
+def serve_run(label: str, clients, url: str, engine, payloads,
+              concurrency: int, requests: int, per_batch: dict,
+              headers=None) -> dict:
+    """One closed-loop run against `engine`'s server: counts set to 0 just
+    before, read just after and held to `per_batch` launches for each batch
+    the engine ran (0 for a kernel it does not name). Logs the serve line;
+    returns the client's results and the run's engine statistics."""
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+
+    before = stats_snapshot(engine)
+    cuda_ops.reset_launches()
+    out = clients.apply(serve_client, (url, payloads, concurrency, requests,
+                                       headers))
+    torch.cuda.synchronize()
+    counts = cuda_ops.launches()
+    after = stats_snapshot(engine)
+    if out["torch_in_client"]:
+        raise AssertionError(f"serve {label}: the client process imported "
+                             "torch")
+    delta = {k: after[k] - before[k] for k in ("requests", "batches",
+                                               "padded_waste", "rejected",
+                                               "expired")}
+    stage = {k: round(after["stage_ms"][k] - before["stage_ms"][k], 3)
+             for k in after["stage_ms"]}
+    lat = np.asarray([r[2] for r in out["results"]])
+    codes = {}
+    for r in out["results"]:
+        codes[r[1]] = codes.get(r[1], 0) + 1
+    batches = delta["batches"]
+    log(f"serve {label}: c={concurrency} requests={requests} "
+        f"req/s={requests / out['wall_s']:.1f} client_ms "
+        f"p50={np.percentile(lat, 50):.3f} p95={np.percentile(lat, 95):.3f} "
+        f"p99={np.percentile(lat, 99):.3f} statuses={codes} "
+        f"engine batches={batches} mean_batch="
+        f"{delta['requests'] / max(batches, 1):.2f} padded_waste="
+        f"{delta['padded_waste']} rejected={delta['rejected']} expired="
+        f"{delta['expired']} stage_ms={stage} compute latency_percentiles="
+        f"{engine.latency_percentiles()} launches="
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for name, got in counts.items():
+        want = per_batch.get(name, 0) * batches
+        if got != want:
+            raise AssertionError(f"serve {label}: {name} launched {got} "
+                                 f"times, expected {per_batch.get(name, 0)} "
+                                 f"per batch x {batches}")
+    return {"results": out["results"], "delta": delta, "counts": counts}
+
+
+def drain_run(label: str, engine, images: np.ndarray, requests: int,
+              per_batch: dict, ref: np.ndarray) -> dict:
+    """The engine without HTTP: one thread submits every request, then
+    waits for all: the engine's own ceiling beside the served runs. Held
+    to `ref` at the AlexNet limits. Returns the launch counts."""
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+
+    before = stats_snapshot(engine)
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    futs = [engine.submit(images[i % len(images)]) for i in range(requests)]
+    probs = np.stack([f.result(timeout=120) for f in futs])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = cuda_ops.launches()
+    after = stats_snapshot(engine)
+    batches = after["batches"] - before["batches"]
+    stage = {k: round(after["stage_ms"][k] - before["stage_ms"][k], 3)
+             for k in after["stage_ms"]}
+    want = ref[np.arange(requests) % len(images)]
+    err = float(np.abs(probs - want).max())
+    top1 = float((probs.argmax(1) == want.argmax(1)).mean())
+    log(f"serve {label}: in-process drain requests={requests} "
+        f"req/s={requests / wall:.1f} engine batches={batches} mean_batch="
+        f"{requests / max(batches, 1):.2f} padded_waste="
+        f"{after['padded_waste'] - before['padded_waste']} stage_ms={stage} "
+        f"max_abs_err(probs)={err:.3e} top1_agreement={top1:.4f} launches="
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for name, got in counts.items():
+        if got != per_batch.get(name, 0) * batches:
+            raise AssertionError(f"serve {label}: {name} launched {got} "
+                                 f"times, expected {per_batch.get(name, 0)} "
+                                 f"per batch x {batches}")
+    if not (err <= 1e-2 and top1 >= 0.99):
+        raise AssertionError(f"serve {label}: max|dprob| {err}, top-1 "
+                             f"agreement {top1}")
+    return counts
+
+
+def hold_responses(label: str, results, ref: np.ndarray, max_dprob: float,
+                   min_top1: float) -> None:
+    """Each 200 response's top-5 probabilities against the reference's at
+    the same class ids, and its top-1 against the reference's argmax."""
+    errs, top1 = [], []
+    for idx, status, _, body in results:
+        if status != 200:
+            continue
+        row = ref[idx]
+        errs.append(max(abs(p - row[c]) for c, p in zip(body["class_ids"],
+                                                        body["probs"])))
+        top1.append(body["class_ids"][0] == int(row.argmax()))
+    if not errs:
+        raise AssertionError(f"serve {label}: no response to hold")
+    err, agree_share = max(errs), float(np.mean(top1))
+    log(f"serve {label}: {len(errs)} responses max_abs_err(probs)="
+        f"{err:.3e} top1_agreement={agree_share:.4f} (limits {max_dprob}, "
+        f"{min_top1})")
+    if not (err <= max_dprob and agree_share >= min_top1):
+        raise AssertionError(f"serve {label}: max|dprob| {err} (limit "
+                             f"{max_dprob}), top-1 agreement {agree_share} "
+                             f"(limit {min_top1})")
+
+
+def profile_window(label: str, fn) -> None:
+    """Device-busy ms and idle share over one call of `fn` (a served run:
+    the kernels come from the engine's threads), by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:  # the kernels launch from the engine's compute thread
+        from torch._C._profiler import _ExperimentalConfig
+
+        extra = {"experimental_config": _ExperimentalConfig(
+            profile_all_threads=True)}
+    except TypeError:  # a torch without the option: CUPTI sees every thread
+        extra = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **extra) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile {label}: device_busy_ms={busy_ms:.4f} "
+        f"profiled_wall_ms={wall_ms:.4f} "
+        f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} "
+        f"all_threads={bool(extra)}")
+    if busy_ms <= 0:
+        raise AssertionError(f"profile {label}: no device time recorded")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.4f} ms x{e.count:<5} "
+            f"{e.key[:90]}")
+
+
+def time_ladder(label: str, engine, buckets) -> None:
+    """The engine's warm forward at each bucket: ms a batch (host clock to
+    a synchronize, median of 3 after one warm forward) and images/s."""
+    h, w, c = (engine.spec.in_height, engine.spec.in_width,
+               engine.spec.in_channels)
+    rows = []
+    with engine._compute_context():
+        for b in buckets:
+            x = torch.randn((b, h, w, c), device=engine.device).to(
+                engine._upload_dtype)
+            engine._fwd(engine.params, x)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                engine._fwd(engine.params, x).float().cpu()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = float(np.median(times))
+            rows.append(f"B={b} ms/batch={ms:.4f} img/s={b / ms * 1e3:.1f}")
+    log(f"ladder {label}: " + "; ".join(rows))
+
+
+def wait_healthy(port: int, proc, timeout_s: float) -> float:
+    """Seconds until GET /healthz answers 200; raises if the process exits
+    or the time runs out."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if proc.poll() is not None:
+            raise AssertionError(f"serve process exited with {proc.returncode}"
+                                 f": {proc.stdout.read()[-2000:]}")
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError):
+            pass
+        time.sleep(0.25)
+    raise AssertionError(f"serve process: no /healthz within {timeout_s} s")
+
+
+def post_bmp(port: int, path: str) -> tuple[int, dict]:
+    import urllib.request
+
+    with open(path, "rb") as f:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/classify",
+                                     data=f.read(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def phase_serve(spec, params, rparams, geo, dev, peaks,
+                smi: str) -> tuple[dict, float]:
+    """Phase 11: the serving daemon on the card. Returns the launch counts
+    of the served runs and pq_fc_fused's largest error at M = 1 and 8."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from qcnn_tpu_torch import cli
+    from qcnn_tpu_torch.eval import Classifier, FamilyClassifier
+    from qcnn_tpu_torch.formats.checkpoint import (
+        save_checkpoint,
+        save_family_checkpoint,
+        save_preprocessor,
+    )
+    from qcnn_tpu_torch.models import common, resnet
+    from qcnn_tpu_torch.preproc import Preprocessor, TorchPreprocessor
+    from qcnn_tpu_torch.serve import EngineConfig
+    from qcnn_tpu_torch.serve.http import serve as http_serve
+    from qcnn_tpu_torch.serve.router import serve_router
+
+    t_phase = time.perf_counter()
+    fc_err = serve_fc_check(geo, spec, dev, peaks)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    counts, failed, procs, servers, engines = {}, [], [], [], []
+
+    def check(fn, *args):
+        """Log a broken limit and go on; the phase raises at its end."""
+        try:
+            fn(*args)
+        except AssertionError as e:
+            failed.append(str(e))
+            log(f"serve FAILED: {e}")
+
+    def start_server(engine, preprocessor=None, names=None):
+        server = http_serve(engine, port=0, block=False,
+                            preprocessor=preprocessor, class_names=names)
+        servers.append(server)
+        return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+    d = tempfile.mkdtemp()
+    try:
+        # step 1: the files, written by the port's own writers
+        files = write_io_files(d, spec, params)
+        paths = files["paths"]
+        mean_path = os.path.join(d, "AlexNet", "imagenet_mean.single.bin")
+        ck = os.path.join(d, "alexnet_ck")
+        save_checkpoint(ck, spec, params)
+        save_preprocessor(ck, Preprocessor.alexnet(mean_path))
+        shutil.copy(os.path.join(d, "class_names.txt"),
+                    os.path.join(ck, "class_names.txt"))
+        rck = os.path.join(d, "resnet50_ck")
+        save_family_checkpoint(rck, "resnet", resnet.resnet50(), rparams)
+        save_preprocessor(rck, TorchPreprocessor.imagenet())
+
+        # step 2: the entry points as processes, started now so that their
+        # start-up overlaps the in-process work; read in step 8
+        port = free_port()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "qcnn_tpu_torch", "serve", "--checkpoint",
+             ck, "--port", str(port), "--memory-mode", "--device", dev.type],
+            cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        t_spawn = time.perf_counter()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "qcnn_tpu_torch", "classify",
+             "--checkpoint", ck, "--device", dev.type, *paths[:2]],
+            cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+        # step 3: the payloads (preprocessed as the server preprocesses a
+        # BMP upload) and the references
+        x = Preprocessor.alexnet(mean_path).load_batch(paths, native="require")
+        xr = TorchPreprocessor.imagenet().load_batch(paths, native="require")
+        np.save(os.path.join(d, "alexnet.npy"), x)
+        np.save(os.path.join(d, "resnet50.npy"), xr)
+        clf = Classifier.from_checkpoint(ck, conv_impl="memory",
+                                         fc_impl="memory", batch_hint=64,
+                                         device=dev)
+        ref_mem = clf._probs(x)
+        del clf
+        fam = FamilyClassifier.from_checkpoint(rck, memory=True, device=dev)
+        ref_resnet = fam._probs(xr)
+        del fam
+
+        # step 4: AlexNet-PQ memory mode, bf16, the serving ladder
+        config = EngineConfig(**common.serving_defaults("alexnet"))
+        if config.bucket_ladder() != SERVE_LADDER:
+            raise AssertionError(f"alexnet ladder {config.bucket_ladder()}")
+        t0 = time.perf_counter()
+        mem, pre, names = cli.linear_engine_from_checkpoint(
+            ck, config, conv_impl="memory", fc_impl="memory", device=dev)
+        engines.append(mem.start())
+        warm = mem.warmup()
+        log(f"serve alexnet memory engine: load+prepare+warmup seconds="
+            f"{time.perf_counter() - t0:.2f} warmup_ms="
+            f"{ {b: round(ms, 2) for b, ms in warm.items()} } "
+            f"upload={mem._upload_dtype} buckets={mem._buckets}")
+        mem_srv, mem_url = start_server(mem, pre, names)
+        per_batch = {"pq_decode": 1, "pq_fc_fused": 3}
+        npy = os.path.join(d, "alexnet.npy")
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(1) as clients:
+            served = []
+            for c, n in SERVE_RUNS:
+                run = serve_run("alexnet memory tensors", clients,
+                                mem_url + "/classify", mem, npy, c, n,
+                                per_batch)
+                served += run["results"]
+                add_counts(counts.setdefault("serve alexnet memory", {}),
+                           run["counts"])
+            c, n = SERVE_PROFILED
+            runs = []
+            profile_window(
+                f"serve alexnet memory c={c} requests={n}",
+                lambda: runs.append(serve_run(
+                    "alexnet memory tensors (profiled)", clients,
+                    mem_url + "/classify", mem, npy, c, n, per_batch)))
+            runs.append(serve_run("alexnet memory BMP uploads", clients,
+                                  mem_url + "/classify", mem, paths, 8,
+                                  len(paths), per_batch))
+            for run in runs:
+                served += run["results"]
+                add_counts(counts["serve alexnet memory"], run["counts"])
+            add_counts(counts["serve alexnet memory"], drain_run(
+                "alexnet memory", mem, x, SERVE_RUNS[-1][1], per_batch,
+                ref_mem))
+            check(hold_responses, "alexnet memory vs Classifier memory "
+                  "batch_hint=64", served, ref_mem, 1e-2, 0.99)
+
+            # step 5: the decode-at-load engine: its answers, then the
+            # router over both servers
+            auto, _, _ = cli.linear_engine_from_checkpoint(ck, config,
+                                                           device=dev)
+            engines.append(auto.start())
+            auto.warmup()
+            futs = [auto.submit(img) for img in x]
+            ref_auto = np.stack([f.result(timeout=120) for f in futs])
+            check(hold_responses, "alexnet memory vs decode-at-load engine",
+                  served, ref_auto, 1e-2, 0.99)
+            auto_srv, auto_url = start_server(auto, pre, names)
+            router = serve_router([mem_url, auto_url], port=0, block=False,
+                                  cooldown_s=60)
+            servers.append(router)
+            r_url = f"http://127.0.0.1:{router.server_address[1]}/classify"
+            n_before = (mem.stats["requests"], auto.stats["requests"])
+            out = clients.apply(serve_client, (r_url, npy, 4, 32))
+            to_both = (mem.stats["requests"] - n_before[0],
+                       auto.stats["requests"] - n_before[1])
+            auto_srv.shutdown()
+            auto_srv.server_close()
+            servers.remove(auto_srv)
+            after = clients.apply(serve_client, (r_url, npy, 4, 32))
+            health = router.router.health()["backends"]
+            statuses = [r[1] for r in out["results"] + after["results"]]
+            log(f"serve router over 2 AlexNet servers: 32 requests -> "
+                f"memory {to_both[0]}, auto {to_both[1]}; auto server shut "
+                f"down, 32 more -> statuses "
+                f"{ {s: statuses.count(s) for s in set(statuses)} }; "
+                f"backends {health}")
+            if not (min(to_both) > 0 and statuses == [200] * 64
+                    and health[1]["errors"] > 0):
+                failed.append("router: no failover to the live server")
+
+            # step 6: backpressure and deadlines on the card
+            burst, _, _ = cli.linear_engine_from_checkpoint(
+                ck, EngineConfig(max_batch=64, buckets=SERVE_LADDER,
+                                 max_queue=SERVE_QUEUE),
+                conv_impl="memory", fc_impl="memory", device=dev)
+            engines.append(burst)
+            burst.warmup()
+            _, burst_url = start_server(burst)
+            # not started: the first SERVE_QUEUE requests wait in the queue,
+            # every other one is shed; started once all of those are back
+            pending = clients.apply_async(serve_client, (
+                burst_url + "/classify", npy, SERVE_BURST, SERVE_BURST))
+            t0 = time.perf_counter()
+            while (burst.stats["rejected"] < SERVE_BURST - SERVE_QUEUE
+                   and time.perf_counter() - t0 < 60):
+                time.sleep(0.05)
+            burst.start()
+            res = pending.get(timeout=120)
+            codes = [r[1] for r in res["results"]]
+            log(f"serve burst of {SERVE_BURST} into max_queue={SERVE_QUEUE}:"
+                f" 200={codes.count(200)} 503={codes.count(503)} "
+                f"stats rejected={burst.stats['rejected']} in "
+                f"{res['wall_s']:.3f} s")
+            if not (codes.count(503) == burst.stats["rejected"]
+                    == SERVE_BURST - SERVE_QUEUE
+                    and codes.count(200) == SERVE_QUEUE):
+                failed.append("backpressure: 503s differ from rejected")
+            expired = mem.stats["expired"]
+            late = serve_run("alexnet memory X-Deadline-Ms 0.001", clients,
+                             mem_url + "/classify", mem, npy, 8, 32, per_batch,
+                             {"X-Deadline-Ms": "0.001"})
+            codes = [r[1] for r in late["results"]]
+            if not (codes.count(504) == mem.stats["expired"] - expired
+                    and codes.count(504) + codes.count(200) == 32
+                    and codes.count(504) > 0):
+                failed.append(f"deadline: 504s {codes.count(504)} against "
+                              f"expired {mem.stats['expired'] - expired}")
+
+            # step 7: ResNet-50, a family checkpoint in memory mode
+            t0 = time.perf_counter()
+            rcfg = EngineConfig(**common.serving_defaults("resnet50"))
+            reng, rpre, _ = cli.family_engine_from_checkpoint(
+                rck, rcfg, memory_mode=True, device=dev)
+            engines.append(reng.start())
+            warm = reng.warmup()
+            log(f"serve resnet50 memory engine: load+prepare+warmup seconds="
+                f"{time.perf_counter() - t0:.2f} warmup_ms="
+                f"{ {b: round(ms, 2) for b, ms in warm.items()} } "
+                f"upload={reng._upload_dtype}")
+            _, r_url = start_server(reng, rpre)
+            c, n = SERVE_RESNET
+            run = serve_run("resnet50 memory tensors", clients,
+                            r_url + "/classify", reng,
+                            os.path.join(d, "resnet50.npy"), c, n,
+                            {"pq_conv_fused": 7, "pq_decode": 17})
+            counts["serve resnet50 memory"] = run["counts"]
+            check(hold_responses, "resnet50 memory vs FamilyClassifier "
+                  "memory", run["results"], ref_resnet, 5e-3, 0.99)
+
+        # step 8: the entry points
+        classify_out, _ = procs[1].communicate(timeout=300)
+        log(f"serve classify process rc={procs[1].returncode}: "
+            + " | ".join(classify_out.strip().splitlines()[:8]))
+        if procs[1].returncode != 0:
+            failed.append(f"classify process rc {procs[1].returncode}: "
+                          f"{classify_out[-2000:]}")
+        up_s = wait_healthy(port, procs[0], 120 - (time.perf_counter()
+                                                   - t_spawn))
+        status, body = post_bmp(port, paths[0])
+        log(f"serve process: /healthz 200 after "
+            f"{time.perf_counter() - t_spawn:.2f} s from spawn "
+            f"(polled {up_s:.2f} s), /classify of a BMP -> {status} "
+            f"top-1 {body['class_ids'][0]} {body['class_names'][0]} "
+            f"(in-process reference top-1 {int(ref_mem[0].argmax())})")
+        if status != 200:
+            failed.append(f"serve process: /classify {status}")
+
+        # step 9: the ladder, measured (the engines' own forwards)
+        time_ladder("alexnet memory", mem, SERVE_TIMED_BUCKETS)
+        time_ladder("resnet50 memory", reng, SERVE_TIMED_BUCKETS)
+
+        # step 10: stop() with requests in flight
+        futs = [mem.submit(img) for img in x for _ in range(4)]
+        mem.stop()
+        done = stopped = hung = 0
+        for f in futs:
+            try:
+                f.result(timeout=5)
+                done += 1
+            except RuntimeError:
+                stopped += 1
+            except TimeoutError:
+                hung += 1
+        log(f"serve stop() with {len(futs)} requests in flight: completed "
+            f"{done}, failed 'engine stopped' {stopped}, unresolved {hung}")
+        if hung:
+            failed.append(f"stop: {hung} futures unresolved after 5 s")
+    finally:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        for engine in engines:
+            engine.stop()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"serve phase seconds={time.perf_counter() - t_phase:.1f} card: {smi}")
+    if failed:
+        raise AssertionError("phase 11: " + "; ".join(failed))
+    return counts, fc_err
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(
         description="Chip smoke of the PyTorch + CUDA port on one card.")
@@ -2261,6 +2929,8 @@ def main() -> int:
     only.add_argument("--only-vit", action="store_true",
                       help="stop after the build, the f32 checks and "
                            "phase 10 (ViT)")
+    only.add_argument("--only-serve", action="store_true",
+                      help="stop after the build and phase 11 (serving)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
@@ -2306,6 +2976,12 @@ def main() -> int:
 
     if args.gather_times:
         phase_gather_times(geo, spec, dev, flush)
+        return 0
+    if args.only_serve:
+        del flush
+        counts, _ = phase_serve(spec, params, synth.random_resnet_pq_params(
+            resnet.resnet50(), seed=0), geo, dev, peaks, smi)
+        log(json.dumps({"partial": "serve only", "launches": counts}))
         return 0
     check_f32_conv(dev)
     t0 = time.perf_counter()
@@ -2365,20 +3041,28 @@ def main() -> int:
     counts |= phase_io(spec, params, rparams, dev, smi)
     # phase 10: the ViT family
     counts |= phase_vit(dev, gpu_name, vparams)
+    # phase 11: serving
+    serve_counts, fc_err = phase_serve(spec, params, rparams, geo, dev,
+                                       peaks, smi)
+    counts |= serve_counts
+    rows["pq_fc_fused"]["max_abs_err"] = max(
+        rows["pq_fc_fused"]["max_abs_err"], fc_err)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
     owners = {  # the paths that own each kernel
         "pq_decode": ("alexnet memory", "resnet50 memory",
                       "io alexnet classify", "io resnet50 family",
                       "vit_b16 memory", "vit_l16 memory",
-                      "io vit_b16 family"),
+                      "io vit_b16 family", "serve alexnet memory",
+                      "serve resnet50 memory"),
         "pq_lut_gather": ("alexnet memory", "alexnet int8 memory",
                           "io alexnet classify batch_hint=1"),
         "pq_fc_fused": ("alexnet memory", "alexnet int8 memory",
                         "io alexnet classify", "io alexnet evaluate_dataset",
-                        "vit_l16 memory"),
+                        "vit_l16 memory", "serve alexnet memory"),
         "lrn_fused": ("lrn_fused entry point",),
-        "pq_conv_fused": ("resnet50 memory", "io resnet50 family"),
+        "pq_conv_fused": ("resnet50 memory", "io resnet50 family",
+                          "serve resnet50 memory"),
         "pq_fc": ("alexnet pallas",),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),
@@ -2435,4 +3119,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    import torch
+
     sys.exit(main())

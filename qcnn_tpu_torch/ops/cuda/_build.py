@@ -9,19 +9,23 @@ headers and flags: a changed source or header builds anew, an unchanged
 tree is loaded as it is. The library is loaded with ``ctypes``
 (no PyTorch headers are compiled, so a build takes seconds).
 
-Nothing is built when a module is imported: the first launch builds.
+Nothing is built when a module is imported: the first launch builds. Launches
+may come from several threads at once (a serving engine launches from its
+compute thread; two engines in one process have two): the first build and
+load run under a lock, once, and each kernel's count of launches goes up
+under its own lock.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -99,10 +103,21 @@ def build() -> tuple[str, float, str]:
     return path, time.perf_counter() - t0, "\n".join(logs)
 
 
-@functools.cache
+_LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
+
+
 def _library() -> ctypes.CDLL:
-    path, _, _ = build()
-    return ctypes.CDLL(path)
+    """The loaded library, built on the first call. Threads that launch
+    their first kernel together wait for one build: two builds would run
+    two sets of nvcc processes into the same directory."""
+    global _LIB
+    if _LIB is None:
+        with _LIB_LOCK:
+            if _LIB is None:
+                path, _, _ = build()
+                _LIB = ctypes.CDLL(path)
+    return _LIB
 
 
 class Kernel:
@@ -115,6 +130,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self._count_lock = threading.Lock()
 
     def launch(self, *args) -> None:
         fn = getattr(_library(), self.symbol)
@@ -124,7 +140,8 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(
                 f"{self.symbol} failed to launch: CUDA error {rc}")
-        self.launches += 1
+        with self._count_lock:  # += is no atomic step across threads
+            self.launches += 1
 
 
 PTR = ctypes.c_void_p
