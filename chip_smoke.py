@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
     python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
     python3 chip_smoke.py --only-serve   # phases 1-2 and 11 (serving)
+    python3 chip_smoke.py --only-quantize  # phases 1-2 and 12 (quantizer)
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
@@ -167,6 +168,37 @@ Phases, each fatal on failure (any exception exits non-zero):
    future unresolved after 5 s. Every run is logged before a broken limit
    fails the phase.
 
+12. the quantizer and the conv strategies that ROADMAP A4 added, on the
+   card, in the order (c), (b), (d), (a), while a thread writes (a)'s dense
+   checkpoint (npz, compressed: tens of seconds of the host's zlib):
+   (c) pq_conv 'gemm' (ungrouped convs) and the per-op 'memory' mix at
+   every AlexNet conv, B=64, bf16 (synthetic PQ params, seed 0): float32
+   outputs against 'decode' within 1e-4 of the largest, one pq_decode
+   launch a call, and the bf16-output times of the impl, 'decode' and
+   'indecode_ohwi'; then network.forward with conv 'auto' (decode at
+   load) and 'memory' at B=64 (pq_decode 1 a forward) and 'lut' at B=32
+   (no kernel; the largest LUT's bytes logged), each against 'auto'.
+   (b) `python -m qcnn_tpu_torch make-family resnet50` as a process
+   (plain k-means, conv K=128, fc K=32: bench.py's family weights), then
+   FamilyClassifier.from_checkpoint in memory mode (pq_conv_fused 7 +
+   pq_decode 17 a forward) and decoded at load, B=64.
+   (a) `python -m qcnn_tpu_torch quantize DENSE OUT --calib-random 32` on
+   AlexNet's random dense params (seed 0) as a process: sequential
+   error-corrected PQ, default geometry, one logged line a layer with its
+   seconds; plain quantize_network in-process; per layer the weight MSE
+   and the response MSE (each quantized prefix's float32 activations, all
+   positions) of both; the logits' relative L2 against the dense net on
+   the 32 calibration inputs (error correction must be closer than plain:
+   the paper's claim) and on 64 held-out inputs (logged); the written
+   checkpoint through Classifier.from_checkpoint, memory mode, bf16, at
+   B=64 (pq_decode 1 + pq_fc_fused 3) and B=1 (pq_decode 1 +
+   pq_lut_gather 3), against decode at load of the same checkpoint.
+   (d) `python -m qcnn_tpu_torch serve --model resnet50 --memory-mode` as
+   a process, started while (a)'s checkpoint is written: it quantizes the
+   seed-0 dense init on the card, and must answer /healthz within 300 s
+   and one tensor with 5 probabilities in descending order.
+   'quantize step' lines give each part's seconds.
+
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
   (wgmma and general kernels) 1e-4 and pq_fc 1e-5 of the largest |output|
@@ -208,6 +240,11 @@ Limits (the script fails past them):
   logits <= 0.2, the JAX package's own bound for its family int8
   (tests/test_model_families.py); the top-1 agreement is logged.
 - the f32 ViT block against float64: 1e-5 of the largest |output|.
+- phase 12: gemm and per-op memory within 1e-4 of decode's largest
+  |output| (the same bf16 operands, float32 sums in another order);
+  AlexNet memory (the quantized checkpoint; conv lut and memory) against
+  decode at load at phase 5's limits, ResNet-50 at phase 7's; EC's
+  relative L2 below plain's on the calibration inputs.
 - phase 11: pq_fc_fused at M = 1 and 8 at phase 3's 1e-4; each answer's
   top-5 probabilities against the reference's at the same ids, and its
   top-1: AlexNet max |dprob| <= 1e-2 and top-1 equal on >= 99 % (against
@@ -217,8 +254,8 @@ Limits (the script fails past them):
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
---only-io, --only-vit, --only-serve or --gather-times it stops early and
-prints neither.
+--only-io, --only-vit, --only-serve, --only-quantize or --gather-times it
+stops early and prints neither.
 """
 
 from __future__ import annotations
@@ -2908,6 +2945,433 @@ def phase_serve(spec, params, rparams, geo, dev, peaks,
     return counts, fc_err
 
 
+QUANT_CALIB = 32      # calibration inputs of the error-corrected AlexNet
+QUANT_HELD_OUT = 64   # inputs of the held-out comparison (logged only)
+QUANT_BATCH = 64      # batch of the classifier and A4 runs
+QUANT_LUT_BATCH = 32  # batch of the network-level 'lut' run
+QUANT_FAMILY = "resnet50"
+
+
+def run_cli(label: str, argv: list, root: str) -> float:
+    """Run `python -m qcnn_tpu_torch <argv>` as a process and log each line
+    of its stderr with the seconds since the previous one (the quantizer
+    logs one line a layer). Returns the process's seconds."""
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = last = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "qcnn_tpu_torch", *argv],
+                            cwd=root, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        for line in proc.stderr:
+            now = time.perf_counter()
+            log(f"quantize {label} +{now - last:.3f}s: {line.rstrip()}")
+            last = now
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"quantize {label}: exit code {rc}")
+    return time.perf_counter() - t0
+
+
+def layer_errors(spec, dense, quant, x, dev) -> dict:
+    """{layer index: (weight MSE, response MSE)} of a quantized linear-spec
+    net against its dense one: the mean squared difference of the decoded
+    weight, and of the layer's output (no bias) on the float32 activations
+    that the quantized prefix feeds it, over every position."""
+    from qcnn_tpu_torch.core import ConvSpec, FCSpec
+    from qcnn_tpu_torch.models import network
+    from qcnn_tpu_torch.models.prepare import _decode_rows_np
+    from qcnn_tpu_torch.ops.conv import conv_dense
+    from qcnn_tpu_torch.ops.fc import matmul
+
+    out = {}
+    for i, layer in enumerate(spec.layers):
+        if not isinstance(layer, (ConvSpec, FCSpec)):
+            continue
+        cb = np.asarray(quant[i]["codebooks"])
+        asmt = np.asarray(quant[i]["assignments"])
+        a = network.forward(quant, x, spec=spec, upto=i, with_softmax=False,
+                            device=dev).float()
+        if isinstance(layer, ConvSpec):
+            w = np.asarray(dense[i]["kernel"])                    # HWIO
+            kh, kw, cg, cout = w.shape
+            w_hat = _decode_rows_np(cb, asmt.reshape(-1, cb.shape[0]), cg)
+            w_hat = w_hat.reshape(cout, kh, kw, cg).transpose(1, 2, 3, 0)
+            zero = torch.zeros(cout, device=dev)
+            conv = dict(stride=layer.stride, pad=layer.pad,
+                        groups=layer.groups)
+            y = conv_dense(a, torch.from_numpy(w).to(dev), zero, **conv)
+            y_hat = conv_dense(a, torch.from_numpy(
+                np.ascontiguousarray(w_hat)).to(dev), zero, **conv)
+        else:
+            if a.ndim == 4:  # the first FC: NCHW flatten
+                a = a.permute(0, 3, 1, 2).reshape(a.shape[0], -1)
+            w = np.asarray(dense[i]["weight"])                    # (Cin, Cout)
+            w_hat = _decode_rows_np(cb, asmt, w.shape[0]).T
+            y = matmul(a, torch.from_numpy(w).to(dev), None)
+            y_hat = matmul(a, torch.from_numpy(
+                np.ascontiguousarray(w_hat)).to(dev), None)
+        out[i] = (float(np.mean((w_hat - w) ** 2)),
+                  float(((y - y_hat) ** 2).mean()))
+    return out
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_quantize(spec, params, dev, gpu_name: str,
+                   family: str = QUANT_FAMILY) -> dict:
+    """Phase 12: the quantizer and the conv strategies A4 added, on the
+    card. (a) AlexNet from FP32: the `quantize` CLI (sequential
+    error-corrected PQ over random calibration inputs) as a process, plain
+    quantize_network in-process, the per-layer errors, the written
+    checkpoint classified in memory mode against decode at load, and the
+    paper's claim (EC closer to the dense logits than plain on the
+    calibration inputs). (b) `make-family resnet50` (plain) as a process,
+    classified in memory mode against decode at load. (c) pq_conv 'gemm'
+    and per-op 'memory' at AlexNet's convs against 'decode', timed, and
+    network.forward with conv 'lut' and 'memory' against 'decode'. (d)
+    `serve --model resnet50 --memory-mode` as a process answers one
+    tensor. They run in the order (c), (b), (d), (a), while a thread
+    writes (a)'s dense checkpoint. Returns the launch counts of each
+    path."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from qcnn_tpu_torch.core import ConvSpec
+    from qcnn_tpu_torch.eval import Classifier, FamilyClassifier
+    from qcnn_tpu_torch.formats.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+        save_preprocessor,
+    )
+    from qcnn_tpu_torch.models import network, prepare, resnet, synth
+    from qcnn_tpu_torch.ops import conv as conv_ops
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.preproc import TorchPreprocessor
+    from qcnn_tpu_torch.quantizer.sequential import quantize_network
+
+    t_phase = t_step = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    counts, failed = {}, []
+
+    def step(name):
+        nonlocal t_step
+        now = time.perf_counter()
+        log(f"quantize step {name}: seconds={now - t_step:.2f}")
+        t_step = now
+
+    def check(fn, *args):
+        """Log a broken limit and go on; the phase raises at its end."""
+        try:
+            fn(*args)
+        except AssertionError as e:
+            failed.append(str(e))
+            log(f"quantize FAILED: {e}")
+
+    names = {i: f"{type(layer).__name__[:-4].lower()}{i}"
+             for i, layer in enumerate(spec.layers)}
+    resnet_spec = resnet.RESNETS[family]()
+    d = tempfile.mkdtemp()
+    try:
+        # the dense AlexNet checkpoint (seed 0) that (a) quantizes: the npz
+        # store compresses 244 MB of float32, which takes the host tens of
+        # seconds, so a thread writes it while (c) and (b) run (zlib
+        # releases the GIL)
+        dense = synth.random_dense_params(spec, seed=0)
+        src, out = os.path.join(d, "dense"), os.path.join(d, "pq_ec")
+        write_error = []
+
+        def write_dense():
+            try:
+                save_checkpoint(src, spec, dense)
+            except Exception as e:  # noqa: BLE001 - re-raised after join
+                write_error.append(e)
+
+        writer = threading.Thread(target=write_dense)
+        writer.start()
+        # (c) A4 at AlexNet's geometry, bf16 (synthetic PQ params, seed 0)
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        shapes = spec.feature_shapes(batch=QUANT_BATCH)
+        for i, layer in enumerate(spec.layers):
+            if not isinstance(layer, ConvSpec):
+                continue
+            p = {k: torch.as_tensor(np.asarray(v), device=dev)
+                 for k, v in params[i].items()}
+            p["codebooks"] = p["codebooks"].bfloat16()
+            x = torch.randn(shapes[i], generator=gen, device=dev).bfloat16()
+            conv = dict(stride=layer.stride, pad=layer.pad,
+                        groups=layer.groups)
+            want = conv_ops.pq_conv(x, p, impl="decode", **conv)
+            scale = want.abs().max().item()
+            impls = ["memory"] + (["gemm"] if layer.groups == 1 else [])
+            for impl in impls:
+                cuda_ops.reset_launches()
+                got = conv_ops.pq_conv(x, p, impl=impl, **conv)
+                torch.cuda.synchronize()
+                c = cuda_ops.launches()
+                add_counts(counts.setdefault(f"a4 {impl}", {}), c)
+                err = (got - want).abs().max().item() / scale
+                cout, kh, kw, _ = p["assignments"].shape
+                route = ("gemm" if impl == "gemm" or conv_ops._gemm_wins(
+                    x.shape, cout, kh, kw, layer.groups, layer.stride,
+                    layer.pad) else "indecode_ohwi")
+                times = {name: time_ms(lambda name=name: conv_ops.pq_conv(
+                    x, p, impl=name, out_dtype=torch.bfloat16, **conv),
+                    flush, reps=10)
+                    for name in (impl, "decode", "indecode_ohwi")}
+                log(f"a4 {names[i]} B={QUANT_BATCH} {tuple(x.shape)} "
+                    f"impl={impl} route={route} rel_err(f32 out vs decode)="
+                    f"{err:.3e} (limit 1e-4) launches="
+                    f"{ {k: v for k, v in c.items() if v} } ms(bf16 out): "
+                    + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+                    + f" card={gpu_name}")
+
+                def within(err=err, label=f"a4 {names[i]} {impl}", c=c):
+                    if not err <= 1e-4:
+                        raise AssertionError(f"{label}: rel err {err}")
+                    if c["pq_decode"] != 1 or sum(c.values()) != 1:
+                        raise AssertionError(f"{label}: launches {c}")
+
+                check(within)
+        del flush
+        x_all = torch.from_numpy(synth.random_input(spec, QUANT_BATCH,
+                                                    seed=6)).to(dev)
+        fwd_probs = {}
+        for impl, b, per_fwd in (("auto", QUANT_BATCH, {}),
+                                 ("memory", QUANT_BATCH, {"pq_decode": 1}),
+                                 ("lut", QUANT_LUT_BATCH, {})):
+            x = x_all[:b]
+            t0 = time.perf_counter()
+            prepared, conv_impls, fc_impls = prepare.prepare_params(
+                spec, params, batch_hint=b, conv_impl=impl, fc_impl="auto",
+                dtype=torch.bfloat16, device=dev)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            fwd_probs[impl], c = drive(
+                f"a4 alexnet conv_impl={impl} B={b} conv_impls="
+                f"{sorted(set(conv_impls) - {'-'})}",
+                lambda: network.forward(prepared, x, spec=spec,
+                                        conv_impls=conv_impls,
+                                        fc_impls=fc_impls,
+                                        compute_dtype=torch.bfloat16,
+                                        device=dev),
+                b, spec.num_classes, steps=2, per_fwd=per_fwd,
+                gpu_name=gpu_name, resident=tensor_bytes(prepared),
+                prep_s=prep_s, prof_steps=0)
+            if impl == "memory":
+                counts["a4 network memory"] = c
+            if impl == "lut":
+                lut_bytes = 0
+                in_shapes = spec.feature_shapes(batch=b)
+                for i, layer in enumerate(spec.layers):
+                    if isinstance(layer, ConvSpec):
+                        _, h, w, _ = in_shapes[i]
+                        s_cnt, k_cnt, _ = params[i]["codebooks"].shape
+                        lut_bytes = max(lut_bytes, b * h * w * 4 * s_cnt
+                                        * k_cnt * layer.groups)
+                log(f"a4 alexnet lut B={b}: largest LUT {lut_bytes} bytes "
+                    f"(float32), peak_alloc_bytes="
+                    f"{torch.cuda.max_memory_allocated()}")
+            del prepared
+        for impl in ("memory", "lut"):
+            b = fwd_probs[impl].shape[0]
+            check(agree, f"a4 alexnet conv_impl={impl} vs decode B={b}",
+                  fwd_probs["auto"][:b], fwd_probs[impl], 1e-2, 0.99)
+        step("(c) A4")
+
+        # (b) ResNet-50 from `make-family` (plain k-means, K = 128 / 32)
+        rck = os.path.join(d, family)
+        rs = run_cli(family, ["make-family", family, rck, "--device",
+                              dev.type], root)
+        log(f"quantize {family} make-family seconds={rs:.2f} "
+            f"card={gpu_name}")
+        rprobs = {}
+        for memory in (True, False):
+            t0 = time.perf_counter()
+            fam = FamilyClassifier.from_checkpoint(rck, memory=memory,
+                                                   device=dev)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            size = fam.spec.in_size
+            gen = torch.Generator(device=dev).manual_seed(4)
+            x = torch.randn((QUANT_BATCH, size, size, 3), generator=gen,
+                            device=dev)
+            mode = "memory" if memory else "decode"
+            rprobs[mode], c = drive(
+                f"quantize {family} {mode} B={QUANT_BATCH}",
+                lambda: fam._fwd(fam.params, x), QUANT_BATCH,
+                fam.spec.num_classes, steps=5,
+                per_fwd=({"pq_conv_fused": 7, "pq_decode": 17} if memory
+                         else {}),
+                gpu_name=gpu_name, resident=tensor_bytes(fam.params),
+                prep_s=prep_s, prof_steps=0)
+            if memory:
+                counts[f"quantize {family} memory"] = c
+            del fam
+        check(agree, f"quantize {family} memory vs decode B={QUANT_BATCH}",
+              rprobs["decode"], rprobs["memory"], 5e-3, 0.99)
+        step("(b) make-family and the family classifier")
+        # (d) `serve --model resnet50` as a process: it quantizes the
+        # seed-0 dense init on the card at start-up; started while the
+        # card waits for the dense checkpoint's write
+        port = free_port()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "qcnn_tpu_torch", "serve", "--model",
+             family, "--memory-mode", "--port", str(port), "--device",
+             dev.type], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            t0 = time.perf_counter()
+            writer.join()
+            if write_error:
+                raise write_error[0]
+            step("(a) waiting for the dense AlexNet checkpoint's write")
+            ready = (time.perf_counter() - t0
+                     + wait_healthy(port, server, 300.0))
+            size = resnet_spec.in_size
+            x = np.random.default_rng(7).standard_normal(
+                (size, size, 3)).astype(np.float32)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/classify", data=x.tobytes(),
+                headers={"X-Shape": f"{size},{size},3"}, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                status, body = r.status, json.loads(r.read())
+            log(f"quantize serve --model {family} --memory-mode: /healthz "
+                f"after {ready:.2f} s (process start, quantize_params on "
+                f"the card, engine warm-up), one tensor: status {status} "
+                f"class_ids={body.get('class_ids')} "
+                f"probs={body.get('probs')}")
+
+            def answered():
+                probs = np.asarray(body.get("probs", []), np.float64)
+                if not (status == 200 and len(body.get("class_ids", []))
+                        == 5 and probs.shape == (5,)
+                        and np.isfinite(probs).all()
+                        and (probs >= 0).all() and probs.sum() <= 1 + 1e-3
+                        and (np.diff(probs) <= 0).all()):
+                    raise AssertionError(f"serve --model {family}: status "
+                                         f"{status}, body {body}")
+
+            check(answered)
+        finally:
+            server.terminate()
+            try:
+                server.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        step(f"(d) serve --model {family} (beside the write)")
+
+        # (a) AlexNet: FP32 -> PQ, error-corrected by the CLI, plain here
+        ec_s = run_cli("alexnet ec", ["quantize", src, out, "--calib-random",
+                                      str(QUANT_CALIB), "--device",
+                                      dev.type], root)
+        t0 = last = time.perf_counter()
+
+        def plain_log(msg):
+            nonlocal last
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            log(f"quantize alexnet plain +{now - last:.3f}s: {msg}")
+            last = now
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        plain = quantize_network(gen, spec, dense, log=plain_log)
+        plain_s = time.perf_counter() - t0
+        _, ec = load_checkpoint(out)
+        log(f"quantize alexnet seconds: ec_process={ec_s:.2f} (process "
+            f"start and checkpoint write included) plain_in_process="
+            f"{plain_s:.2f} card={gpu_name}")
+        # the CLI's calibration inputs (--calib-random, --seed 0)
+        x_cal = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (QUANT_CALIB, spec.in_height, spec.in_width, spec.in_channels)
+        ).astype(np.float32)).to(dev)
+        x_held = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (QUANT_HELD_OUT, spec.in_height, spec.in_width,
+             spec.in_channels)).astype(np.float32)).to(dev)
+        err_plain = layer_errors(spec, dense, plain, x_cal, dev)
+        err_ec = layer_errors(spec, dense, ec, x_cal, dev)
+        for i in err_plain:
+            log(f"quantize alexnet {names[i]}: plain weight_mse="
+                f"{err_plain[i][0]:.6e} response_mse={err_plain[i][1]:.6e}"
+                f"; ec weight_mse={err_ec[i][0]:.6e} response_mse="
+                f"{err_ec[i][1]:.6e} (on the {QUANT_CALIB} calibration "
+                "inputs through each quantized prefix)")
+
+        def logits(p, x):
+            return network.forward(p, x, spec=spec, with_softmax=False,
+                                   device=dev).float()
+
+        errs = {}
+        for tag, x in (("calibration", x_cal), ("held-out", x_held)):
+            want = logits(dense, x)
+            errs[tag] = (rel_l2(logits(plain, x), want),
+                         rel_l2(logits(ec, x), want))
+            log(f"quantize alexnet logits vs dense, {tag} ({x.shape[0]} "
+                f"inputs, f32): rel_l2 plain={errs[tag][0]:.6f} "
+                f"ec={errs[tag][1]:.6f}")
+
+        def ec_closer():
+            p, e = errs["calibration"]
+            if not e < p:
+                raise AssertionError(f"alexnet EC rel L2 {e} not below "
+                                     f"plain {p} on the calibration inputs")
+
+        check(ec_closer)
+        step("(a) quantize, the per-layer errors and the logits")
+
+        # the written checkpoint, classified: memory mode vs decode at load
+        save_preprocessor(out, TorchPreprocessor.imagenet(
+            crop=spec.in_height))
+        x64 = synth.random_input(spec, QUANT_BATCH, seed=3)
+        probs = {}
+        for mode, b, per_fwd in (("memory", QUANT_BATCH,
+                                  {"pq_decode": 1, "pq_fc_fused": 3}),
+                                 ("memory", 1,
+                                  {"pq_decode": 1, "pq_lut_gather": 3}),
+                                 ("auto", QUANT_BATCH, {}),
+                                 ("auto", 1, {})):
+            t0 = time.perf_counter()
+            clf = Classifier.from_checkpoint(
+                out, conv_impl=mode, fc_impl=mode, batch_hint=b,
+                compute_dtype=torch.bfloat16, device=dev)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            x = torch.from_numpy(x64[:b]).to(dev)
+            label = (f"quantize alexnet {mode} B={b} "
+                     f"fc_impls={sorted(set(clf.fc_impls) - {'-'})}")
+            probs[(mode, b)], c = drive(
+                label, lambda: clf._fwd(clf.params, x), b, spec.num_classes,
+                steps=5 if b > 1 else 20, per_fwd=per_fwd, gpu_name=gpu_name,
+                resident=tensor_bytes(clf.params), prep_s=prep_s,
+                prof_steps=0)
+            if mode == "memory":
+                add_counts(counts.setdefault(
+                    f"quantize alexnet memory B={b}", {}), c)
+            del clf
+        for b in (QUANT_BATCH, 1):
+            check(agree, f"quantize alexnet memory vs auto B={b}",
+                  probs[("auto", b)], probs[("memory", b)], 1e-2, 0.99)
+        step("(a) the written checkpoint classified")
+    finally:
+        writer.join()
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"quantize phase seconds={time.perf_counter() - t_phase:.2f}")
+    if failed:
+        raise AssertionError(f"phase 12: {len(failed)} checks failed: "
+                             + "; ".join(failed))
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(
         description="Chip smoke of the PyTorch + CUDA port on one card.")
@@ -2931,6 +3395,9 @@ def main() -> int:
                            "phase 10 (ViT)")
     only.add_argument("--only-serve", action="store_true",
                       help="stop after the build and phase 11 (serving)")
+    only.add_argument("--only-quantize", action="store_true",
+                      help="stop after the build and phase 12 (the "
+                           "quantizer and the A4 conv strategies)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
@@ -2939,6 +3406,7 @@ def main() -> int:
                         help="with --gather-times: the checkout whose "
                              "qcnn_tpu_torch is timed (default: this one)")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     if args.root and not args.gather_times:
         parser.error("--root goes with --gather-times")
     if not torch.cuda.is_available():
@@ -2982,6 +3450,12 @@ def main() -> int:
         counts, _ = phase_serve(spec, params, synth.random_resnet_pq_params(
             resnet.resnet50(), seed=0), geo, dev, peaks, smi)
         log(json.dumps({"partial": "serve only", "launches": counts}))
+        return 0
+    if args.only_quantize:
+        del flush
+        counts = phase_quantize(spec, params, dev, gpu_name)
+        log(f"script seconds={time.perf_counter() - t_script:.2f}")
+        log(json.dumps({"partial": "quantize only", "launches": counts}))
         return 0
     check_f32_conv(dev)
     t0 = time.perf_counter()
@@ -3047,6 +3521,8 @@ def main() -> int:
     counts |= serve_counts
     rows["pq_fc_fused"]["max_abs_err"] = max(
         rows["pq_fc_fused"]["max_abs_err"], fc_err)
+    # phase 12: the quantizer and the A4 conv strategies
+    counts |= phase_quantize(spec, params, dev, gpu_name)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
     owners = {  # the paths that own each kernel
@@ -3054,15 +3530,22 @@ def main() -> int:
                       "io alexnet classify", "io resnet50 family",
                       "vit_b16 memory", "vit_l16 memory",
                       "io vit_b16 family", "serve alexnet memory",
-                      "serve resnet50 memory"),
+                      "serve resnet50 memory",
+                      f"quantize alexnet memory B={QUANT_BATCH}",
+                      "quantize alexnet memory B=1",
+                      f"quantize {QUANT_FAMILY} memory", "a4 gemm",
+                      "a4 memory", "a4 network memory"),
         "pq_lut_gather": ("alexnet memory", "alexnet int8 memory",
-                          "io alexnet classify batch_hint=1"),
+                          "io alexnet classify batch_hint=1",
+                          "quantize alexnet memory B=1"),
         "pq_fc_fused": ("alexnet memory", "alexnet int8 memory",
                         "io alexnet classify", "io alexnet evaluate_dataset",
-                        "vit_l16 memory", "serve alexnet memory"),
+                        "vit_l16 memory", "serve alexnet memory",
+                        f"quantize alexnet memory B={QUANT_BATCH}"),
         "lrn_fused": ("lrn_fused entry point",),
         "pq_conv_fused": ("resnet50 memory", "io resnet50 family",
-                          "serve resnet50 memory"),
+                          "serve resnet50 memory",
+                          f"quantize {QUANT_FAMILY} memory"),
         "pq_fc": ("alexnet pallas",),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),
@@ -3111,6 +3594,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    log(f"script seconds={time.perf_counter() - t_script:.2f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu_name,

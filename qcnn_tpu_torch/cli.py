@@ -7,9 +7,10 @@ reference lacks) is a subcommand.
 
 Every subcommand that runs a model takes ``--device {cuda,cpu}``, default
 ``cuda``: it raises without a card unless the CPU is asked for, and then
-runs the kernels' plain versions. ``quantize`` and ``make-family`` need the
-quantizer (ROADMAP.md A11) and ``profile`` the profiler (A13), which are
-not ported: each exits non-zero with a message naming the item.
+runs the kernels' plain versions (``quantize`` and ``make-family`` also take
+the JAX package's ``--cpu`` as an alias of ``--device cpu``). ``profile``
+needs the per-layer profiler (ROADMAP.md A13), which is not ported: it exits
+non-zero with a message naming the item.
 """
 
 from __future__ import annotations
@@ -34,8 +35,6 @@ def log(*a):
 _FAMILY_MODELS = ("resnet18", "resnet50", "resnet101", "resnet152",
                   "vit_s16", "vit_b16", "vit_l16")
 _DTYPES = ("bfloat16", "float32", "int8")
-_QUANTIZER_NOT_PORTED = ("needs the quantizer, which is not ported yet: "
-                         "ROADMAP.md A11")
 
 
 def _impl_kwargs(args) -> dict:
@@ -425,15 +424,193 @@ def cmd_export(args) -> int:
 
 
 # ---------------------------------------------------------------------------
-# quantize / make-family — need the quantizer (ROADMAP.md A11)
+# quantize — FP32 checkpoint -> PQ checkpoint (the reference delegates this
+# to offline MATLAB; here it is a PyTorch program on the card)
 # ---------------------------------------------------------------------------
 
+def _quantizer_generator(args):
+    """The quantizer's generator, seeded with --seed, on the device asked
+    for (--cpu is --device cpu); raises without a card unless the CPU is
+    asked for."""
+    import torch
+
+    from qcnn_tpu_torch._device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else args.device)
+    return torch.Generator(device=device).manual_seed(args.seed)
+
+
 def cmd_quantize(args) -> int:
-    raise NotImplementedError(f"quantize {_QUANTIZER_NOT_PORTED}")
+    import numpy as np
+
+    from qcnn_tpu_torch.formats.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+
+    gen = _quantizer_generator(args)
+    src = str(args.checkpoint)
+    embed_torch_preproc = False
+    if src.endswith((".caffemodel", ".pt", ".pth", ".onnx")):
+        # FP32 weight files: Caffe protobuf (the reference lineage's
+        # format), a torchvision-style state_dict (features./classifier.
+        # naming), or an ONNX graph (Conv/Gemm/MatMul weights in node order)
+        if not args.arch:
+            log("error: --arch is required for weight-file input "
+                "(the file carries weights, not topology)")
+            return 2
+        from qcnn_tpu_torch.models import zoo
+
+        spec = zoo.get_model(args.arch)
+        if src.endswith(".caffemodel"):
+            from qcnn_tpu_torch.formats.caffe_pb import import_caffemodel
+
+            params = import_caffemodel(args.checkpoint, spec)
+        elif src.endswith(".onnx"):
+            from qcnn_tpu_torch.formats.onnx_import import import_onnx
+
+            params = import_onnx(args.checkpoint, spec)
+            # ONNX exports on this lineage come from torch/TF training
+            # stacks whose eval transform is the [0,1] mean/std one
+            embed_torch_preproc = True
+        else:
+            from qcnn_tpu_torch.models.torch_import import load_torch_linear
+
+            params = load_torch_linear(spec, args.checkpoint)
+            embed_torch_preproc = True
+        log(f"imported {args.checkpoint} into {spec.name} "
+            f"({sum(p is not None for p in params)} learnable layers)")
+    else:
+        spec, params = load_checkpoint(args.checkpoint)
+    # per-layer overrides: the reference's codebook geometry varies per
+    # layer (SURVEY.md §2a: fc8 uses scalar sub-spaces with 16 codewords
+    # while fc6/fc7 use 4-wide/32); --layer-config exposes that as JSON,
+    # e.g. '{"21": {"subvec_len": 1, "codewords": 16}}' (keys = indices)
+    overrides = {}
+    if args.layer_config:
+        overrides = {
+            int(k): v for k, v in json.loads(args.layer_config).items()
+        }
+    x_calib = None
+    if args.calib_npy:
+        x_calib = np.load(args.calib_npy).astype(np.float32)
+        if x_calib.ndim != 4:
+            log(f"error: --calib-npy must be (B, H, W, C); got "
+                f"{x_calib.shape}")
+            return 2
+        log(f"sequential error-corrected PQ over {x_calib.shape[0]} "
+            "calibration inputs (quantized-prefix activations per layer)")
+    elif args.calib_random:
+        x_calib = np.random.default_rng(args.seed + 1).standard_normal(
+            (args.calib_random, spec.in_height, spec.in_width,
+             spec.in_channels)
+        ).astype(np.float32)
+        log(f"sequential error-corrected PQ over {args.calib_random} "
+            "random calibration inputs (mechanics only; use --calib-npy "
+            "with real preprocessed images for accuracy-relevant scales)")
+
+    from qcnn_tpu_torch.quantizer.sequential import quantize_network
+
+    out_params = quantize_network(
+        gen, spec, params,
+        conv_subvec_len=args.conv_subvec_len,
+        conv_codewords=args.conv_codewords,
+        fc_subvec_len=args.fc_subvec_len,
+        fc_codewords=args.fc_codewords,
+        overrides=overrides, x_calib=x_calib, seed=args.seed,
+        opq=args.opq, log=log,
+    )
+    save_checkpoint(args.out, spec, out_params, store=args.store)
+    if embed_torch_preproc:
+        # torch-trained weights expect the torch eval transform (RGB,
+        # mean/std): embed it so classify/serve use correct semantics
+        from qcnn_tpu_torch.formats.checkpoint import save_preprocessor
+        from qcnn_tpu_torch.preproc import TorchPreprocessor
+
+        save_preprocessor(
+            args.out, TorchPreprocessor.imagenet(crop=spec.in_height)
+        )
+    log(f"wrote PQ checkpoint {args.out}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# make-family — build a quantized ResNet/ViT checkpoint (random dense init,
+# or a torch state_dict)
+# ---------------------------------------------------------------------------
+
+def _family_module(model: str):
+    """(family name, module, spec) of a family registry name."""
+    if model.startswith("resnet"):
+        from qcnn_tpu_torch.models import resnet as fam
+
+        return "resnet", fam, fam.RESNETS[model]()
+    from qcnn_tpu_torch.models import vit as fam
+
+    return "vit", fam, fam.VITS[model]()
 
 
 def cmd_make_family(args) -> int:
-    raise NotImplementedError(f"make-family {_QUANTIZER_NOT_PORTED}")
+    from qcnn_tpu_torch.formats.checkpoint import save_family_checkpoint
+
+    gen = _quantizer_generator(args)
+    family, fam, spec = _family_module(args.model)
+    if args.from_torch:
+        from qcnn_tpu_torch.models import torch_import
+
+        if family == "resnet":
+            dense = torch_import.load_torch_resnet(spec, args.from_torch)
+            log(f"imported torchvision-format weights from "
+                f"{args.from_torch} (BatchNorms folded)")
+        else:
+            dense = torch_import.load_torch_vit(spec, args.from_torch)
+            log(f"imported timm-format ViT weights from {args.from_torch}")
+    else:
+        dense = fam.init_dense_params(spec, seed=args.seed)
+    if args.dense:
+        params = dense
+    elif args.calib_npy or args.calib_random:
+        # sequential error-corrected PQ against (quantized-prefix)
+        # activations — the CVPR'16 scheme, family edition
+        import numpy as np
+
+        if args.calib_npy:
+            x_calib = np.load(args.calib_npy).astype(np.float32)
+        else:
+            size = spec.in_size if family == "resnet" else spec.image_size
+            x_calib = np.random.default_rng(args.seed + 1).standard_normal(
+                (args.calib_random, size, size, 3)).astype(np.float32)
+        from qcnn_tpu_torch.quantizer import sequential as seq
+
+        log(f"sequential error-corrected PQ over {x_calib.shape[0]} "
+            "calibration inputs")
+        if family == "resnet":
+            params = seq.quantize_resnet_ec(gen, spec, dense, x_calib,
+                                            seed=args.seed)
+        else:
+            params = seq.quantize_vit_ec(gen, spec, dense, x_calib,
+                                         seed=args.seed)
+    else:
+        params = fam.quantize_params(spec, dense, device=gen.device)
+    save_family_checkpoint(args.out, family, spec, params, store=args.store)
+    # Embed the torch-ecosystem eval transform so the checkpoint is a
+    # self-contained classify/serve artifact (like the linear import path;
+    # the reference wires preproc in code, CaffeEvaWrapper.cc:54-85).
+    from qcnn_tpu_torch.formats.checkpoint import save_preprocessor
+    from qcnn_tpu_torch.preproc import TorchPreprocessor
+
+    crop = spec.in_size if family == "resnet" else spec.image_size
+    save_preprocessor(
+        args.out, TorchPreprocessor.imagenet(crop=crop,
+                                             resize=max(256, crop))
+    )
+    if args.class_names:
+        import shutil
+
+        shutil.copyfile(args.class_names,
+                        os.path.join(args.out, "class_names.txt"))
+    log(f"wrote {'dense' if args.dense else 'PQ'} {args.model} "
+        f"checkpoint {args.out}")
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -541,11 +718,17 @@ def cmd_serve(args) -> int:
                 args.checkpoint, config, **_impl_kwargs(args)
             )
     elif args.model in _FAMILY_MODELS:
-        # family models: synthetic PQ weights quantized from a random dense
-        # init, as the JAX package serves them; the quantizer is not ported
-        raise NotImplementedError(
-            f"serve --model {args.model} {_QUANTIZER_NOT_PORTED} (serve a "
-            "family checkpoint with --checkpoint instead)")
+        # family models: synthetic PQ weights (no pretrained checkpoints
+        # ship offline), quantized on the serving device from a random
+        # dense init; serves raw preprocessed tensors via X-Shape.
+        # --memory-mode keeps only compressed params resident.
+        family, fam, spec = _family_module(args.model)
+        pq = fam.quantize_params(spec, fam.init_dense_params(spec, seed=0),
+                                 device=args.device)
+        engine = _build_family_engine(
+            family, spec, pq, config, memory_mode=args.memory_mode,
+            compute_dtype=compute_dtype, device=args.device,
+        )
     else:
         from qcnn_tpu_torch.eval.harness import _MODEL_WIRING
         from qcnn_tpu_torch.models.loader import (
@@ -690,8 +873,7 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--encoding", default="cbn", choices=["cbn", "bin"])
     ex.set_defaults(fn=cmd_export)
 
-    q = sub.add_parser("quantize", help="FP32 checkpoint -> PQ checkpoint "
-                                        "(not ported yet: ROADMAP.md A11)")
+    q = sub.add_parser("quantize", help="FP32 checkpoint -> PQ checkpoint")
     q.add_argument("checkpoint",
                    help="native checkpoint, a Caffe .caffemodel, a "
                         "torchvision-style .pt/.pth state_dict, or an "
@@ -723,14 +905,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "error, same compression — but the result cannot be "
                         "exported to the reference file layout")
     q.add_argument("--cpu", action="store_true",
-                   help="run the quantizer on the host CPU")
+                   help="run the quantizer on the host CPU (--device cpu)")
     q.add_argument("--store", default="npz", choices=["npz", "orbax"],
                    help="parameter array store backend")
+    _add_device(q)
     q.set_defaults(fn=cmd_quantize)
 
     mf = sub.add_parser("make-family",
-                        help="build a ResNet/ViT PQ checkpoint (not ported "
-                             "yet: ROADMAP.md A11)")
+                        help="build a ResNet/ViT PQ checkpoint")
     mf.add_argument("model", choices=list(_FAMILY_MODELS))
     mf.add_argument("out")
     mf.add_argument("--seed", type=int, default=0)
@@ -741,7 +923,7 @@ def build_parser() -> argparse.ArgumentParser:
     mf.add_argument("--dense", action="store_true",
                     help="skip quantization (FP32 checkpoint)")
     mf.add_argument("--cpu", action="store_true",
-                    help="run the quantizer on the host CPU")
+                    help="run the quantizer on the host CPU (--device cpu)")
     mf.add_argument("--store", default="npz", choices=["npz", "orbax"],
                     help="parameter array store backend")
     mf.add_argument("--class-names", default=None, metavar="PATH",
@@ -753,6 +935,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "quantizes against quantized-prefix activations)")
     mf.add_argument("--calib-random", type=int, default=0, metavar="N",
                     help="like --calib-npy with N random inputs")
+    _add_device(mf)
     mf.set_defaults(fn=cmd_make_family)
 
     s = sub.add_parser("serve", help="continuous-batching HTTP daemon")

@@ -47,9 +47,7 @@ from qcnn_tpu_torch.ops.misc import (
 )
 
 # The request-level strategy vocabulary of the JAX package
-# (qcnn_tpu/models/network.py:59-63). resolve_strategy accepts all of it;
-# ops.conv raises NotImplementedError for the conv names the port has not
-# ported.
+# (qcnn_tpu/models/network.py:59-63); every name runs.
 CONV_IMPLS = ("auto", "decode", "indecode", "indecode_ohwi", "indecode_hwoi",
               "gdecode", "gdecode_iohw", "gemm", "lut", "memory",
               "fusedconv", "memory_fused", "fc1x1")

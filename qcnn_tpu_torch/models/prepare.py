@@ -42,12 +42,7 @@ from qcnn_tpu_torch.core import (
 )
 from qcnn_tpu_torch.models import network
 from qcnn_tpu_torch.ops.fc import padded_k
-
-
-def inverse_permutation(perm) -> np.ndarray:
-    """argsort(perm): maps original dimension index -> permuted position
-    (a copy of qcnn_tpu/quantizer/opq.py:81-83)."""
-    return np.argsort(np.asarray(perm)).astype(np.int32)
+from qcnn_tpu_torch.quantizer.opq import inverse_permutation
 
 
 def _is_int8(dtype) -> bool:

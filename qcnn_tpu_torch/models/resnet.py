@@ -32,11 +32,13 @@ from qcnn_tpu_torch.models.prepare import (
     _is_int8,
     _np,
     dense_layer,
-    inverse_permutation,
 )
 from qcnn_tpu_torch.ops import conv as conv_ops
 from qcnn_tpu_torch.ops import fc as fc_ops
 from qcnn_tpu_torch.ops.misc import caffe_max_pool, relu
+from qcnn_tpu_torch.quantizer.kmeans import split
+from qcnn_tpu_torch.quantizer.opq import inverse_permutation
+from qcnn_tpu_torch.quantizer.pq import quantize_conv_layer, quantize_fc_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,12 +300,48 @@ def forward_segments(spec: ResNetSpec, *, compute_dtype=None,
 # Quantization / preparation
 # ---------------------------------------------------------------------------
 
-def quantize_params(spec: ResNetSpec, dense: dict, **kwargs) -> dict:
-    """The quantizer is not ported yet (ROADMAP.md A11); synthetic PQ
-    params come from ``models.synth.random_resnet_pq_params``."""
-    raise NotImplementedError(
-        "resnet.quantize_params needs the quantizer, which is not ported "
-        "yet: ROADMAP.md A11")
+def quantize_params(
+    spec: ResNetSpec,
+    dense: dict,
+    *,
+    seed: int = 0,
+    conv_subvec_len: int = 4,
+    conv_codewords: int = 128,
+    fc_subvec_len: int = 4,
+    fc_codewords: int = 32,
+    min_cin: int = 16,
+    device=None,
+) -> dict:
+    """Quantize every conv/fc (plain k-means, NumPy params out). Convs
+    with cin < min_cin (the stem) stay dense — PQ on 3 input channels
+    saves nothing (cf. AlexNet conv1's degenerate single-subspace
+    codebook, SURVEY.md §2a).
+
+    device: where the k-means runs; None means "cuda". One generator
+    seeded with ``seed`` is split once per leaf, in the JAX package's
+    order."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+    def quant_leaf(p: dict) -> dict:
+        if "kernel" in p:
+            kh, kw, cin, cout = p["kernel"].shape
+            if cin < min_cin:
+                return p
+            oihw = np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))
+            return quantize_conv_layer(
+                split(gen), oihw, p["bias"],
+                num_subspaces=-(-cin // conv_subvec_len),
+                num_codewords=conv_codewords,
+            )
+        if "weight" in p:
+            return quantize_fc_layer(
+                split(gen), np.asarray(p["weight"]).T, p["bias"],
+                num_subspaces=-(-p["weight"].shape[0] // fc_subvec_len),
+                num_codewords=fc_codewords,
+            )
+        return {k: quant_leaf(v) for k, v in p.items()}
+
+    return {name: quant_leaf(p) for name, p in dense.items()}
 
 
 def _conv_cin_map(spec: ResNetSpec) -> dict:

@@ -11,8 +11,8 @@ a final classifier FC gets scalar sub-spaces with 16 codewords, matching
 fc8's (4096, 16, 1) codebook.
 
 ``random_resnet_pq_params`` and ``random_vit_pq_params`` are the port's
-own: the families' PQ params come from the quantizer in the JAX package,
-which the port does not have yet.
+own: random codebooks and ids at the families' geometry, without the
+k-means of ``resnet.quantize_params`` / ``vit.quantize_params``.
 """
 
 from __future__ import annotations
@@ -133,8 +133,8 @@ def random_dense_params(spec: ModelSpec, seed: int = 0) -> list:
 
 def random_resnet_pq_params(spec, seed: int = 0) -> dict:
     """Synthetic PQ params for a ``models.resnet.ResNetSpec`` (NumPy), in the
-    layout and geometry of the JAX package's ``resnet.quantize_params``
-    (which needs the quantizer, not ported yet) at its defaults: convs with
+    layout and geometry of ``resnet.quantize_params`` at its defaults
+    (random codewords, no k-means): convs with
     cin >= 16 get D=4, K=128 and S = ceil(cin / 4); the stem stays dense;
     the fc gets D=4, K=32. Codewords are scaled like
     ``resnet.init_dense_params`` (1/sqrt(kh*kw*cin)), so decoded weights

@@ -44,9 +44,11 @@ from qcnn_tpu_torch.models.prepare import (
     _np,
     _tensor,
     dense_layer,
-    inverse_permutation,
 )
 from qcnn_tpu_torch.ops import fc as fc_ops
+from qcnn_tpu_torch.quantizer.kmeans import split
+from qcnn_tpu_torch.quantizer.opq import inverse_permutation
+from qcnn_tpu_torch.quantizer.pq import quantize_fc_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,12 +341,34 @@ def forward_segments(spec: ViTSpec, *, compute_dtype=None,
 # Quantization / preparation
 # ---------------------------------------------------------------------------
 
-def quantize_params(spec: ViTSpec, dense: dict, **kwargs) -> dict:
-    """The quantizer is not ported yet (ROADMAP.md A11); synthetic PQ
-    params come from ``models.synth.random_vit_pq_params``."""
-    raise NotImplementedError(
-        "vit.quantize_params needs the quantizer, which is not ported yet: "
-        "ROADMAP.md A11")
+def quantize_params(
+    spec: ViTSpec,
+    dense: dict,
+    *,
+    seed: int = 0,
+    subvec_len: int = 4,
+    num_codewords: int = 32,
+    device=None,
+) -> dict:
+    """PQ every projection GEMM (plain k-means, NumPy params out);
+    LN/embeddings stay dense (tiny). device: where the k-means runs; None
+    means "cuda". One generator seeded with ``seed`` is split once per
+    leaf, in the JAX package's order."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+    def quant(p):
+        if isinstance(p, dict) and "weight" in p:
+            cin = p["weight"].shape[0]
+            return quantize_fc_layer(
+                split(gen), np.asarray(p["weight"]).T, p["bias"],
+                num_subspaces=-(-cin // subvec_len),
+                num_codewords=num_codewords,
+            )
+        if isinstance(p, dict):
+            return {k: quant(v) for k, v in p.items()}
+        return p
+
+    return {name: quant(p) for name, p in dense.items()}
 
 
 def prepare_params(spec: ViTSpec, params: dict, dtype=torch.bfloat16, *,

@@ -18,7 +18,12 @@ gather (qcnn_tpu/ops/lut.py:107-111) and only work around a slow TPU
 gather. ``decode`` is the plain PyTorch gather. ``fusedconv`` runs the
 ``pq_conv_fused`` kernel, ``fc1x1`` the ``pq_fc_fused`` kernel over the
 flattened pixels, and ``memory_fused`` picks one of them or the OHWI decode
-per layer (:func:`memory_fused_route`).
+per layer (:func:`memory_fused_route`). ``gemm`` decodes the weight with the
+``pq_decode`` kernel in the FC layout and multiplies the im2col patches by
+it (:func:`pq_conv_gemm`); ``memory`` picks ``gemm`` or the OHWI decode by
+the JAX package's crossover (:func:`_gemm_wins`); ``lut`` is the reference's
+LUT formulation as one convolution of the LUT with the one-hot assignments
+(:func:`pq_conv_lut`).
 
 Float32 convolutions run with TF32 off, whatever the caller's global
 setting: cuDNN's default would round f32 operands to TF32.
@@ -41,17 +46,12 @@ from qcnn_tpu_torch.ops.fc import (
     INT_MM_MIN_ROWS,
     check_gdecode_codewords,
     int8_matmul,
+    matmul,
     pad_k_columns,
     padded_k,
     quantize_activations_int8,
     requantize_int8,
 )
-
-_NOT_PORTED = {
-    "lut": "ROADMAP.md A4 (the LUT + one-hot conv formulation)",
-    "gemm": "ROADMAP.md A4 (the im2col GEMM formulation)",
-    "memory": "ROADMAP.md A4 (the per-op 'memory' im2col/decode mix)",
-}
 
 # memory_fused's 1x1 reroute gates, copied from the JAX package
 # (qcnn_tpu/ops/conv.py:30-41). _FC1X1_MAX_ROWS = 0 keeps the reroute off,
@@ -68,7 +68,8 @@ _INSTEP_LAYOUTS = {
     "indecode_hwoi": "hwoi",
     "gdecode_iohw": "iohw",
 }
-_IMPLS = ("decode", "fusedconv", "memory_fused", "fc1x1", *_INSTEP_LAYOUTS)
+_IMPLS = ("decode", "fusedconv", "memory_fused", "fc1x1", "gemm", "memory",
+          "lut", *_INSTEP_LAYOUTS)
 
 
 def memory_fused_route(params: dict, x_shape, x_dtype, *, stride: int,
@@ -102,6 +103,36 @@ def memory_fused_route(params: dict, x_shape, x_dtype, *, stride: int,
     return "indecode_ohwi"
 
 
+def _space_to_depth_transform(x: torch.Tensor, kernel: torch.Tensor,
+                              stride: int):
+    """Rewrite a strided small-Cin conv as a stride-1 conv on a
+    space-to-depth input (qcnn_tpu/ops/conv.py:91-125): folding r x r
+    spatial blocks into channels (r = stride) gives an equivalent stride-1
+    conv over r*r*Cin channels, whose kernel over blocks holds the original
+    weights at (t // r, t % r) and zeros elsewhere.
+
+    Exact for pad == 0 (AlexNet conv1). x NHWC, kernel HWIO. Returns
+    (x_sd, kernel_sd)."""
+    b, h, w, cin = x.shape
+    kh, kw, _, cout = kernel.shape
+    r = stride
+    kb = (kh - 1) // r + 1  # block-kernel size
+    # pad H/W up to a multiple of r; padded pixels only fall in zero weight
+    # slots (tap index >= kh) or beyond the last output's receptive field
+    hp = -(-h // r) * r
+    wp = -(-w // r) * r
+    x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+    x_sd = (x.reshape(b, hp // r, r, wp // r, r, cin)
+            .permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, hp // r, wp // r, r * r * cin))
+    # k_sd[bi, bj, (pi, pj, c), o] = k[r*bi+pi, r*bj+pj, c, o], zero past kh
+    k_pad = F.pad(kernel, (0, 0, 0, 0, 0, kb * r - kw, 0, kb * r - kh))
+    k_sd = (k_pad.reshape(kb, r, kb, r, cin, cout)
+            .permute(0, 2, 1, 3, 4, 5)
+            .reshape(kb, kb, r * r * cin, cout))
+    return x_sd, k_sd
+
+
 def conv_dense(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -110,6 +141,7 @@ def conv_dense(
     stride: int,
     pad: int,
     groups: int = 1,
+    space_to_depth: bool = False,
     kernel_layout: str = "HWIO",
     out_dtype=None,
 ) -> torch.Tensor:
@@ -120,6 +152,10 @@ def conv_dense(
     JAX package's ``preferred_element_type=out_dtype``.
 
     kernel_layout: any permutation of "HWIO" naming the kernel's axes.
+    space_to_depth=True rewrites a strided small-Cin stem conv (HWIO
+    kernel, pad 0, ungrouped, Cin <= 4, kernel wider than the stride) with
+    :func:`_space_to_depth_transform`, as the JAX package's opt-in does;
+    any other conv runs as it is.
     """
     if x.dtype == torch.int8:
         # int8 activations are quantized codes (qcnn_tpu/ops/conv.py:164-171)
@@ -133,6 +169,17 @@ def conv_dense(
                          f"{kernel_layout!r}")
     if x.dtype != kernel.dtype:
         x = x.to(kernel.dtype)
+    out_hw = None
+    if (space_to_depth and layout == "HWIO" and pad == 0 and stride > 1
+            and groups == 1 and x.shape[-1] <= 4
+            and kernel.shape[0] > stride):
+        # the output size of the ORIGINAL conv (floor rule,
+        # CaffeEva.cc:361-362): the stride-1 conv can produce extra
+        # trailing rows/cols when (H - k) % stride != 0
+        out_hw = ((x.shape[1] - kernel.shape[0]) // stride + 1,
+                  (x.shape[2] - kernel.shape[1]) // stride + 1)
+        x, kernel = _space_to_depth_transform(x, kernel, stride)
+        stride = 1
     w = kernel.permute(*(layout.index(c) for c in "OIHW"))
     xn = x.permute(0, 3, 1, 2)
     out_dtype = out_dtype or torch.float32
@@ -146,6 +193,8 @@ def conv_dense(
                          allow_tf32=False):
             y = F.conv2d(xn.float(), w.float(), stride=stride, padding=pad,
                          groups=groups).to(out_dtype)
+    if out_hw is not None:
+        y = y[:, :, :out_hw[0], :out_hw[1]]
     y = y + bias.to(out_dtype)[:, None, None]
     return y.permute(0, 2, 3, 1)
 
@@ -270,6 +319,86 @@ def pq_conv_decode(
     )
 
 
+def _gemm_wins(x_shape, cout: int, kh: int, kw: int, groups: int,
+               stride: int, pad: int) -> bool:
+    """The 'memory' impl's crossover, copied from the JAX package
+    (qcnn_tpu/ops/conv.py:289-305): the im2col GEMM when the weight's
+    elements x 50 exceed the patches' elements, never for 1x1 or grouped
+    convs. The rule was measured on a TPU (re-deriving it on the H100 is
+    queued in ROADMAP.md A7b)."""
+    if kh == 1 and kw == 1:
+        return False
+    if groups != 1:
+        return False
+    b, h, w, cin = x_shape
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (w + 2 * pad - kw) // stride + 1
+    weight_elems = kh * kw * cin * cout
+    patch_elems = b * ho * wo * cin * kh * kw
+    return weight_elems * 50 > patch_elems
+
+
+def pq_conv_gemm(x: torch.Tensor, params: dict, *, stride: int, pad: int,
+                 groups: int = 1, out_dtype=None) -> torch.Tensor:
+    """In-step decode + im2col GEMM (qcnn_tpu/ops/conv.py:308-361).
+
+      patches (B*Ho*Wo, Cin*kh*kw)  [F.unfold on the NCHW view: feature
+                                     order (C, kh, kw), the order of
+                                     lax.conv_general_dilated_patches]
+      weight  (Cin*kh*kw, Cout)     [the ``pq_decode`` kernel in the FC
+                                     layout, assignment rows packed
+                                     (kh, kw, Cout): columns line up with
+                                     the (c, ij) patch features]
+
+    Every K <= 256 decodes with the kernel (the JAX package's one-hot
+    decode past K = 128 gives the same bits). One matmul follows, float32
+    sums without TF32 for float32 operands (``ops.fc.matmul``)."""
+    if groups != 1:
+        raise ValueError("pq_conv_gemm supports groups == 1")
+    cb = params["codebooks"]
+    a = params["assignments"]
+    s = cb.shape[0]
+    cout, kh, kw, _ = a.shape
+    b, h, w_, cg = x.shape
+    a2 = a.permute(1, 2, 0, 3).reshape(kh * kw * cout, s)
+    w = pq_decode.decode_fc_weight_gather(cb, a2, cg)  # (Cin, kh*kw*Cout)
+    w2 = w.reshape(cg * kh * kw, cout)
+    patches = F.unfold(x.permute(0, 3, 1, 2).to(w2.dtype), (kh, kw),
+                       padding=pad, stride=stride)     # (B, F, Ho*Wo)
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (w_ + 2 * pad - kw) // stride + 1
+    out = matmul(patches.transpose(1, 2).reshape(b * ho * wo, -1), w2,
+                 out_dtype)
+    return out.reshape(b, ho, wo, cout) + params["bias"].to(out.dtype)
+
+
+def pq_conv_lut(x: torch.Tensor, params: dict, *, stride: int, pad: int,
+                groups: int = 1, out_dtype=None) -> torch.Tensor:
+    """PQ conv as LUT build + one-hot conv over the LUT channels
+    (qcnn_tpu/ops/conv.py:364-408).
+
+    Per group g: lut_g[b,h,w,s,k] = <x_g[b,h,w,s*D:(s+1)*D], C[s,k]>; then
+    out[b,ho,wo,o] = bias[o] + sum_{kh,kw,s} lut_g[b, hi, wi, s, A[o,kh,kw,s]]
+    which is a conv of lut_g (S*K channels) with the one-hot kernel
+    OH[o,kh,kw,(s,k)] = [A[o,kh,kw,s] == k]. Zero padding of the LUT replays
+    the reference's skipping of out-of-bounds kernel positions
+    (CaffeEva.cc:820-827). The LUT and the one-hot kernel are float32."""
+    codebooks = params["codebooks"]
+    assignments = params["assignments"]  # (Cout, kh, kw, S)
+    s, k, _ = codebooks.shape
+    cout, kh, kw, _ = assignments.shape
+    b, h, w, cin = x.shape
+    cg = cin // groups
+    luts = [lut_ops.build_lut(x[..., g * cg:(g + 1) * cg], codebooks)
+            .reshape(b, h, w, s * k) for g in range(groups)]
+    lut_all = torch.cat(luts, dim=-1) if groups > 1 else luts[0]
+    onehot = lut_ops.assignments_one_hot(assignments, k).reshape(
+        cout, kh, kw, s * k)
+    return conv_dense(lut_all, onehot, params["bias"], stride=stride,
+                      pad=pad, groups=groups, kernel_layout="OHWI",
+                      out_dtype=out_dtype)
+
+
 def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
                    groups: int, out_dtype) -> torch.Tensor:
     """A 1x1 conv as an FC over the flattened pixels, through the
@@ -305,9 +434,6 @@ def pq_conv(
     """PQ conv by strategy name (see the module docstring). decoded: the
     layer's weight from a grouped decode, for the in-step decode impls
     (:func:`instep_decodes`)."""
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"pq_conv impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}")
     if impl not in _IMPLS:
         raise ValueError(f"unknown pq_conv impl: {impl}")
     if impl in ("gdecode", "gdecode_iohw"):
@@ -342,6 +468,16 @@ def pq_conv(
     if impl == "fc1x1":
         return _pq_conv_fc1x1(x, params, stride=stride, pad=pad,
                               groups=groups, out_dtype=out_dtype)
+    if impl == "lut":
+        return pq_conv_lut(x, params, stride=stride, pad=pad, groups=groups,
+                           out_dtype=out_dtype)
+    if impl in ("gemm", "memory"):
+        cout, kh, kw, _ = params["assignments"].shape
+        if impl == "gemm" or _gemm_wins(x.shape, cout, kh, kw, groups,
+                                        stride, pad):
+            return pq_conv_gemm(x, params, stride=stride, pad=pad,
+                                groups=groups, out_dtype=out_dtype)
+        impl = "indecode_ohwi"
     return pq_conv_decode(
         x, params, stride=stride, pad=pad, groups=groups,
         layout=_INSTEP_LAYOUTS.get(impl), out_dtype=out_dtype,

@@ -10,7 +10,8 @@ The decodes here are plain gathers. The JAX package's one-hot decodes
 (``decode_*_onehot``) only work around a slow TPU gather and give the same
 bits, so they are not ported: every in-step decode of the port runs the
 ``pq_decode`` kernel (``ops/cuda/pq_decode.py``), whose plain version is
-:func:`decode_rows` below.
+:func:`decode_rows` below. :func:`assignments_one_hot` is the one-hot kernel
+of the LUT conv formulation (``ops.conv.pq_conv_lut``).
 """
 
 from __future__ import annotations
@@ -84,3 +85,10 @@ def decode_conv_kernel(
     w = decode_rows(codebooks, assignments.reshape(cout * kh * kw, s),
                     in_channels_per_group)
     return w.reshape(cout, kh, kw, in_channels_per_group).permute(1, 2, 3, 0)
+
+
+def assignments_one_hot(assignments: torch.Tensor, num_codewords: int,
+                        dtype=torch.float32) -> torch.Tensor:
+    """One-hot expansion of assignment indices over the codeword axis:
+    sum_s lut[b,s,A[o,s]] == einsum('bsk,osk->bo', lut, onehot)."""
+    return F.one_hot(assignments.long(), num_codewords).to(dtype)

@@ -167,14 +167,15 @@ def test_resolve_strategy_vocabulary():
 
 
 def test_unported_strategies_raise_not_implemented():
-    """The conv names still to port raise naming the ROADMAP; fc 'onehot'
-    and int8 are ported and give the JAX package's output (f32 within
-    1e-5; int8 with dynamic scales within 1e-2 of the largest |logit|,
-    measured 0)."""
+    """No strategy name is left unported: conv 'lut' (the last conv names),
+    fc 'onehot' and int8 give the JAX package's output (f32 within 1e-5;
+    int8 with dynamic scales within 1e-2 of the largest |logit|, measured
+    0)."""
     params = _params()
     x = jsynth.random_input(JSPEC, batch=2, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tnet.forward(params, x, spec=TSPEC, conv_impl="lut", device="cpu")
+    want = jnet.forward(params, x, spec=JSPEC, conv_impl="lut")
+    _close(tnet.forward(params, x, spec=TSPEC, conv_impl="lut",
+                        device="cpu"), want)
     want = jnet.forward(params, x, spec=JSPEC, fc_impl="onehot")
     _close(tnet.forward(params, x, spec=TSPEC, fc_impl="onehot",
                         device="cpu"), want)

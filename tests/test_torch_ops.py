@@ -253,10 +253,16 @@ def test_pq_conv_impls(rng, impl, perm):
 
 @pytest.mark.parametrize("impl", ["lut", "gemm", "memory"])
 def test_unported_conv_impls_raise(impl):
-    p = {"codebooks": torch.zeros(1, 4, 4), "bias": torch.zeros(2),
-         "assignments": torch.zeros((2, 1, 1, 1), dtype=torch.uint8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconv.pq_conv(torch.zeros(1, 2, 2, 4), p, stride=1, pad=0, impl=impl)
+    """No conv impl is left unported: 'lut', 'gemm' and 'memory', the last
+    three, run and give the JAX package's output (1e-5);
+    tests/test_torch_conv_strategies.py holds them at more shapes."""
+    p = {"codebooks": np.ones((1, 4, 4), np.float32),
+         "bias": np.arange(2, dtype=np.float32),
+         "assignments": np.zeros((2, 1, 1, 1), dtype=np.uint8)}
+    x = np.arange(16, dtype=np.float32).reshape(1, 2, 2, 4)
+    want = np.asarray(jconv.pq_conv(x, p, stride=1, pad=0, impl=impl))
+    got = tconv.pq_conv(T(x), _torch_params(p), stride=1, pad=0, impl=impl)
+    close(got, want)
 
 
 @pytest.mark.parametrize("impl", ["onehot"])

@@ -57,7 +57,9 @@ def test_port_modules_import_no_jax_in_a_fresh_interpreter():
                  "formats.native", "preproc.bmp", "preproc.pipeline",
                  "preproc.native", "utils.timing", "eval.harness",
                  "serve.engine", "serve.http", "serve.router", "cli",
-                 "__main__"):
+                 "__main__", "quantizer", "quantizer.kmeans",
+                 "quantizer.pq", "quantizer.opq", "quantizer.sequential",
+                 "formats.caffe_pb", "formats.onnx_import"):
         assert f"qcnn_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -111,6 +113,12 @@ def test_no_string_names_a_jax_package_module():
     for root, _, files in os.walk(os.path.dirname(qcnn_tpu_torch.__file__)):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     pattern = re.compile(r"\b(qcnn_tpu|jax|ml_dtypes)\.[a-z_]")
+    names = {os.path.relpath(p, REPO) for p in paths}
+    for copied in ("quantizer/kmeans.py", "quantizer/pq.py",
+                   "quantizer/opq.py", "quantizer/sequential.py",
+                   "formats/caffe_pb.py", "formats/onnx_import.py",
+                   "formats/checkpoint.py"):
+        assert f"qcnn_tpu_torch/{copied}" in names
     for path in paths:
         bad = [s for s in _strings_of(path) if pattern.search(s)]
         assert not bad, f"{path} names {bad}"

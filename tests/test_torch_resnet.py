@@ -189,13 +189,29 @@ def test_forward_segments_compose_to_forward():
 
 
 def test_unported_parts_raise_naming_the_roadmap():
-    """The quantizer (A11) raises naming the ROADMAP; int8 is ported: its
-    prepare quantizes and build_family_forward runs it with bf16
-    activations. ViT is ported: build_family_forward("vit") runs."""
+    """Nothing here is left unported. The quantizer (A11) runs: without a
+    card it raises rather than run on the CPU unasked, and on the CPU it
+    quantizes the JAX package's leaves with its shapes and dtypes
+    (tests/test_torch_sequential_quantize.py holds it further). int8 is
+    ported: its prepare quantizes and build_family_forward runs it with
+    bf16 activations. ViT is ported: build_family_forward("vit") runs."""
     spec = tresnet.ResNetSpec(**SMALL["basic"])
     params = synth.random_resnet_pq_params(spec, seed=0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tresnet.quantize_params(spec, tresnet.init_dense_params(spec))
+    dense = tresnet.init_dense_params(spec)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tresnet.quantize_params(spec, dense)
+    got = tresnet.quantize_params(spec, dense, conv_codewords=8,
+                                  fc_codewords=8, device="cpu")
+    want = jresnet.quantize_params(jresnet.ResNetSpec(**SMALL["basic"]),
+                                   dense, conv_codewords=8, fc_codewords=8)
+    for key in want:
+        for name, leaf in want[key].items():
+            if isinstance(leaf, dict):
+                assert {n: np.asarray(v).shape for n, v in leaf.items()} == \
+                    {n: v.shape for n, v in got[key][name].items()}
+            else:
+                assert np.asarray(leaf).shape == got[key][name].shape
     prepared = tresnet.prepare_params(spec, params, dtype=torch.int8,
                                       device="cpu")
     assert prepared["s0b0"]["conv1"]["kernel_q"].dtype == torch.int8

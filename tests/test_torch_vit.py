@@ -342,8 +342,15 @@ def test_prepare_rejects_int8_prepared_params_and_other_dtypes():
     with pytest.raises(ValueError, match="unsupported dtype"):
         tvit.prepare_params(tspec, params, dtype=torch.float16,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tvit.quantize_params(tspec, tvit.init_dense_params(tspec))
+    # the quantizer is ported: without a card it raises rather than run on
+    # the CPU unasked, and on the CPU it quantizes every projection GEMM
+    dense = tvit.init_dense_params(tspec)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tvit.quantize_params(tspec, dense)
+    q = tvit.quantize_params(tspec, dense, num_codewords=8, device="cpu")
+    assert q["blk0"]["qkv"]["assignments"].dtype == np.uint8
+    assert "kernel" not in q["blk0"]["ln1"] and "scale" in q["blk0"]["ln1"]
 
 
 @pytest.mark.parametrize("model,images,decodes,fused", [
