@@ -10,11 +10,18 @@
     python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
     python3 chip_smoke.py --only-serve   # phases 1-2 and 11 (serving)
     python3 chip_smoke.py --only-quantize  # phases 1-2 and 12 (quantizer)
+    python3 chip_smoke.py --only-profile   # phases 1-2 and 13 (profile)
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
         # parent commit's, unpacked beside it): how two versions are
-        # compared inside one call
+        # compared inside one call. The clock is the checkout's
+        # (qcnn_tpu_torch.utils.timing.time_ms): CHECKOUT must have it.
+    python3 chip_smoke.py --quantize-repro [--root CHECKOUT]
+        # phase 1, then AlexNet (plain and error-corrected) and ResNet-50
+        # quantized twice each with one seed: which PQ layers differ bit
+        # for bit, and the first k-means seeding or Lloyd iteration at
+        # which the runs part (any checkout's quantizer)
 
 Phases, each fatal on failure (any exception exits non-zero):
 
@@ -197,7 +204,29 @@ Phases, each fatal on failure (any exception exits non-zero):
    a process, started while (a)'s checkpoint is written: it quantizes the
    seed-0 dense init on the card, and must answer /healthz within 300 s
    and one tensor with 5 probabilities in descending order.
+   One seed, two runs, the same bits ('quantize repro' lines): (b)'s
+   make-family checkpoint against resnet.quantize_params in this process,
+   (a)'s plain pass run twice, and (a)'s error-corrected process against
+   the same pass in this process; every PQ layer's codebooks and ids must
+   be equal bit for bit. Then the k-means update's sums at fc6's geometry
+   ('quantize sums' lines): the quantizer's sorted segment sum (the same
+   bits twice), the one-hot product and the scatter-add, timed.
    'quantize step' lines give each part's seconds.
+
+13. the profile command (eval/profiler.py, cli.py), through cli.main as
+   `python -m qcnn_tpu_torch profile` runs it, with the card's clock
+   (utils.timing.time_ms, which the phases above use too): AlexNet auto at
+   B=256 and B=1, memory at B=256 (pq_decode and pq_fc_fused must launch,
+   no other kernel) and B=1 (pq_decode and pq_lut_gather), int8 at B=256
+   (no kernel), fc 'pallas' at B=256 (pq_fc), and ResNet-50 memory mode at
+   B=64 (pq_conv_fused and pq_decode; its PQ weights from phase 12's
+   quantize_params, the same bits as the command's). Each table is printed
+   ('profile-table' lines); every conv and FC row (every family segment)
+   must have a positive time; the sum of the rows is held against the
+   device-busy ms of the same step built here (profile_steps): the ratio
+   is logged and must lie in 0.5-2.0. Then the profiler's fused-decode
+   estimate beside pq_conv_fused less cuDNN at ResNet-50's two fused
+   geometries ('profile fused-est-decode' lines, no limit).
 
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
@@ -251,11 +280,16 @@ Limits (the script fails past them):
   the Classifier and against the decode-at-load engine), ResNet-50 5e-3
   and 99 %; launch counts exact; the status counts as above.
 
+- phase 13: each profile table's sum of rows within 0.5-2.0 of its step's
+  device-busy ms (the rows are timed one by one with the L2 flushed; the
+  step runs warm); launch counts as listed there; phase 12's repro checks
+  bit for bit.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
---only-io, --only-vit, --only-serve, --only-quantize or --gather-times it
-stops early and prints neither.
+--only-io, --only-vit, --only-serve, --only-quantize, --only-profile,
+--gather-times or --quantize-repro it stops early and prints neither.
 """
 
 from __future__ import annotations
@@ -263,6 +297,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -289,8 +324,11 @@ PEAK_PER_CONV_DECODE = {
     "alexnet memory B=256": 2753165824, "alexnet memory B=1": 223171072,
     "resnet50 memory B=64": 521740288, "resnet50 memory B=1": 97525760,
 }
-FLUSH_BYTES = 256 << 20  # > the 50 MB L2
-SPIN_CYCLES = 18_000_000  # about 10 ms of device clock
+# the package's clock, qcnn_tpu_torch.utils.timing.time_ms (CUDA events,
+# the L2 flushed before each call, the launches queued behind a device
+# spin) and its flush buffer: bound by main() once the checkout is on the
+# path, so that the smoke and the profiler share one clock
+time_ms = flush_buffer = None
 
 
 def log(*args) -> None:
@@ -310,29 +348,11 @@ def bound(bytes_moved: float, ops: float, ops_rate: float,
                                  "operations")
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
-    """Median device time of one call, with the L2 flushed before each.
-    The device first spins for about 10 ms while the host enqueues every
-    repetition behind it, so that a slow host (Python around a launch, two
-    launches a call) does not show up as device time."""
-    fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    torch.cuda._sleep(SPIN_CYCLES)
-    for i in range(reps):
-        flush.zero_()
-        starts[i].record()
-        fn()
-        ends[i].record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
-
-
-def profile_steps(fwd, steps: int, label: str) -> None:
+def profile_steps(fwd, steps: int, label: str) -> float:
     """Device time of `steps` forwards by kernel (torch.profiler), the
     device-busy time a step, its share of the profiled wall time, and the
-    host's CPU time a step in operators and launches."""
+    host's CPU time a step in operators and launches. Returns the
+    device-busy ms a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -363,6 +383,7 @@ def profile_steps(fwd, steps: int, label: str) -> None:
     log(f"  host: self_cpu_ms/step={host_ms:.4f}; top: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / steps / 1e3:.4f} ms "
         f"x{e.count // steps}" for e in top))
+    return busy_ms
 
 
 def log_ptxas(build_log: str) -> None:
@@ -1688,7 +1709,7 @@ def phase_int8_layers(spec, params, scales, dev, peaks) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(21)
     geo = alexnet_geometry(spec, params)
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = flush_buffer(dev)
     for b in (256, 1):
         prepared, _, _ = prepare.prepare_params(
             spec, params, batch_hint=b, dtype=torch.int8, act_scales=scales,
@@ -2393,7 +2414,7 @@ def serve_fc_check(geo, spec, dev, peaks) -> float:
 
     gen = np.random.default_rng(17)
     shapes = spec.feature_shapes(batch=1)
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = flush_buffer(dev)
     worst = 0.0
     for b in (1, 8):
         for name in ALEXNET_FCS:
@@ -3023,6 +3044,93 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
+def pq_leaves(params, path: str = "") -> dict:
+    """{path: layer dict} of every PQ layer (one with codebooks) in a list
+    or a nested dict of params, in order."""
+    if isinstance(params, dict) and "codebooks" in params:
+        return {path: params}
+    items = (params.items() if isinstance(params, dict)
+             else enumerate(params or ()))
+    out = {}
+    for key, value in items:
+        if isinstance(value, (dict, list, tuple)):
+            out |= pq_leaves(value, f"{path}/{key}" if path else str(key))
+    return out
+
+
+def differing_layers(first, second) -> list:
+    """The PQ layers whose codebooks (float32 bits) or ids differ between
+    two quantizations of one model."""
+    a, b = pq_leaves(first), pq_leaves(second)
+    if list(a) != list(b):
+        raise AssertionError(f"the runs quantized other layers: {list(a)} "
+                             f"against {list(b)}")
+
+    def bits(leaf):
+        cb = np.asarray(torch.as_tensor(leaf["codebooks"]).float().cpu())
+        ids = np.asarray(torch.as_tensor(leaf["assignments"]).cpu())
+        return cb.view(np.uint32), ids.astype(np.int64)
+
+    out = []
+    for path in a:
+        (cb_a, ids_a), (cb_b, ids_b) = bits(a[path]), bits(b[path])
+        if not (np.array_equal(cb_a, cb_b) and np.array_equal(ids_a, ids_b)):
+            out.append(path)
+    return out
+
+
+def repro_check(label: str, first, second) -> None:
+    """Log which PQ layers of two runs with one seed differ; none may."""
+    diff = differing_layers(first, second)
+    log(f"quantize repro {label}: {len(pq_leaves(first))} PQ layers, "
+        f"{len(diff)} differ bit for bit" + (f" (first {diff[0]})"
+                                            if diff else ""))
+    if diff:
+        raise AssertionError(f"{label}: one seed gave other codebooks or "
+                             f"ids at {diff}")
+
+
+def time_cluster_sums(dev, gpu_name: str) -> None:
+    """The k-means update's sums at AlexNet fc6's geometry (S=2304,
+    N=4096 units, K=32, D=4) on the card: the quantizer's sorted segment
+    sum, the one-hot product the JAX package contracts and the
+    scatter-add the port used before, each run twice (same bits or not),
+    and timed."""
+    from qcnn_tpu_torch.quantizer import kmeans
+
+    s, n, k, d = 2304, 4096, 32, 4
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((s, n, d), generator=gen, device=dev)
+    ids = torch.randint(0, k, (s, n), generator=gen, device=dev)
+
+    def one_hot():
+        step = kmeans.chunk_size(n * k, x.device)
+        codes = torch.arange(k, device=dev)
+        out = []
+        for i in range(0, s, step):
+            oh = (ids[i:i + step, :, None] == codes).float()
+            out.append(torch.bmm(oh.transpose(1, 2), x[i:i + step]))
+        return torch.cat(out)
+
+    def scatter_add():
+        out = torch.zeros((s, k, d), device=dev)
+        return out.scatter_add_(1, ids[..., None].expand(s, n, d), x)
+
+    flush = flush_buffer(dev)
+    want = kmeans.cluster_sums(x, ids, k)[0]
+    for name, fn in (("cluster_sums (sorted segment sum)",
+                      lambda: kmeans.cluster_sums(x, ids, k)[0]),
+                     ("one-hot bmm", one_hot), ("scatter_add_", scatter_add)):
+        first, second = fn(), fn()
+        err = ((first - want).abs().max() / want.abs().max()).item()
+        log(f"quantize sums fc6 {name}: ms={time_ms(fn, flush, reps=10):.4f}"
+            f" same_bits_twice={torch.equal(first, second)} "
+            f"rel_err_vs_cluster_sums={err:.2e} card={gpu_name}")
+        if name.startswith("cluster_sums") and not torch.equal(first,
+                                                              second):
+            raise AssertionError("cluster_sums gave other bits twice")
+
+
 def phase_quantize(spec, params, dev, gpu_name: str,
                    family: str = QUANT_FAMILY) -> dict:
     """Phase 12: the quantizer and the conv strategies A4 added, on the
@@ -3037,8 +3145,11 @@ def phase_quantize(spec, params, dev, gpu_name: str,
     network.forward with conv 'lut' and 'memory' against 'decode'. (d)
     `serve --model resnet50 --memory-mode` as a process answers one
     tensor. They run in the order (c), (b), (d), (a), while a thread
-    writes (a)'s dense checkpoint. Returns the launch counts of each
-    path."""
+    writes (a)'s dense checkpoint. Each quantization runs twice with one
+    seed (AlexNet plain twice in-process, the EC process against the same
+    pass in-process, make-family against quantize_params in-process): the
+    codebooks and ids must be the same bits. Returns the launch counts of
+    each path and the in-process ResNet-50 PQ params."""
     import shutil
     import tempfile
     import threading
@@ -3048,6 +3159,7 @@ def phase_quantize(spec, params, dev, gpu_name: str,
     from qcnn_tpu_torch.eval import Classifier, FamilyClassifier
     from qcnn_tpu_torch.formats.checkpoint import (
         load_checkpoint,
+        load_family_checkpoint,
         save_checkpoint,
         save_preprocessor,
     )
@@ -3097,7 +3209,7 @@ def phase_quantize(spec, params, dev, gpu_name: str,
         writer = threading.Thread(target=write_dense)
         writer.start()
         # (c) A4 at AlexNet's geometry, bf16 (synthetic PQ params, seed 0)
-        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        flush = flush_buffer(dev)
         gen = torch.Generator(device=dev).manual_seed(5)
         shapes = spec.feature_shapes(batch=QUANT_BATCH)
         for i, layer in enumerate(spec.layers):
@@ -3219,7 +3331,13 @@ def phase_quantize(spec, params, dev, gpu_name: str,
             del fam
         check(agree, f"quantize {family} memory vs decode B={QUANT_BATCH}",
               rprobs["decode"], rprobs["memory"], 5e-3, 0.99)
-        step("(b) make-family and the family classifier")
+        # the same seed in this process: the same bits as make-family's
+        family_pq = resnet.quantize_params(
+            resnet_spec, resnet.init_dense_params(resnet_spec, seed=0),
+            device=dev)
+        check(repro_check, f"{family} plain (make-family process, then "
+              "in-process)", load_family_checkpoint(rck)[2], family_pq)
+        step("(b) make-family, the family classifier and the repro check")
         # (d) `serve --model resnet50` as a process: it quantizes the
         # seed-0 dense init on the card at start-up; started while the
         # card waits for the dense checkpoint's write
@@ -3288,13 +3406,24 @@ def phase_quantize(spec, params, dev, gpu_name: str,
         plain = quantize_network(gen, spec, dense, log=plain_log)
         plain_s = time.perf_counter() - t0
         _, ec = load_checkpoint(out)
+        # one seed, two runs: the plain pass again, and the CLI's
+        # error-corrected pass (--calib-random, --seed 0) in this process
+        cal_np = np.random.default_rng(1).standard_normal(
+            (QUANT_CALIB, spec.in_height, spec.in_width, spec.in_channels)
+        ).astype(np.float32)
+        check(repro_check, "alexnet plain (twice in-process)", plain,
+              quantize_network(torch.Generator(device=dev).manual_seed(0),
+                               spec, dense))
+        check(repro_check, "alexnet ec (quantize process, then "
+              "in-process)", ec, quantize_network(
+                  torch.Generator(device=dev).manual_seed(0), spec, dense,
+                  x_calib=cal_np, seed=0))
+        step("(a) the repro checks")
+        check(time_cluster_sums, dev, gpu_name)
         log(f"quantize alexnet seconds: ec_process={ec_s:.2f} (process "
             f"start and checkpoint write included) plain_in_process="
             f"{plain_s:.2f} card={gpu_name}")
-        # the CLI's calibration inputs (--calib-random, --seed 0)
-        x_cal = torch.from_numpy(np.random.default_rng(1).standard_normal(
-            (QUANT_CALIB, spec.in_height, spec.in_width, spec.in_channels)
-        ).astype(np.float32)).to(dev)
+        x_cal = torch.from_numpy(cal_np).to(dev)
         x_held = torch.from_numpy(np.random.default_rng(2).standard_normal(
             (QUANT_HELD_OUT, spec.in_height, spec.in_width,
              spec.in_channels)).astype(np.float32)).to(dev)
@@ -3369,7 +3498,271 @@ def phase_quantize(spec, params, dev, gpu_name: str,
     if failed:
         raise AssertionError(f"phase 12: {len(failed)} checks failed: "
                              + "; ".join(failed))
+    return counts, family_pq
+
+
+PROFILE_RUNS = (  # (label, profile flags, the kernels that must launch)
+    ("alexnet auto B=256", ["--model", "alexnet", "--batch", "256"], ()),
+    ("alexnet auto B=1", ["--model", "alexnet", "--batch", "1"], ()),
+    ("alexnet memory B=256", ["--model", "alexnet", "--batch", "256",
+                              "--conv-impl", "memory", "--fc-impl",
+                              "memory"], ("pq_decode", "pq_fc_fused")),
+    ("alexnet memory B=1", ["--model", "alexnet", "--batch", "1",
+                            "--conv-impl", "memory", "--fc-impl", "memory"],
+     ("pq_decode", "pq_lut_gather")),
+    ("alexnet int8 B=256", ["--model", "alexnet", "--batch", "256",
+                            "--dtype", "int8"], ()),
+    ("alexnet pallas B=256", ["--model", "alexnet", "--batch", "256",
+                              "--fc-impl", "pallas"], ("pq_fc",)),
+    ("resnet50 memory B=64", ["--model", "resnet50", "--batch", "64",
+                              "--conv-impl", "memory", "--fc-impl",
+                              "memory"], ("pq_conv_fused", "pq_decode")),
+)
+PROFILE_RATIO = (0.5, 2.0)  # sum of the rows / the step's device-busy ms
+PROFILE_ROW = re.compile(r"^\[\s*\d+\] (\S+)\s+(\S+)\s+\(.*?\)\s+([\d.]+) us")
+PROFILE_SEGMENT = re.compile(r"^(\S+)\s+([\d.]+)\s+[\d.]+$")
+
+
+def profile_step(argv: list, dev, family_pq):
+    """The forward step that `profile argv` times layer by layer, built as
+    the command builds it (the same seeds and flags; family_pq: ResNet-50's
+    PQ params, the bits the command quantizes): fn() -> output."""
+    from qcnn_tpu_torch import cli
+    from qcnn_tpu_torch.models import network, prepare, resnet, synth, zoo
+
+    args = cli.build_parser().parse_args(["profile", *argv])
+    dtype = cli._dtype_arg(args.dtype)
+    act = prepare.act_dtype_for(dtype)
+    if args.model.startswith("resnet"):
+        spec = resnet.RESNETS[args.model]()
+        prepared = resnet.prepare_params(spec, family_pq, dtype=dtype, memory=(
+            "memory" in (args.conv_impl, args.fc_impl)), device=dev)
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (args.batch, spec.in_size, spec.in_size, 3)).astype(
+            np.float32)).to(dev)
+        return lambda: resnet.forward(prepared, x, spec=spec,
+                                      compute_dtype=act, device=dev)
+    spec = zoo.get_model(args.model)
+    prepared, ci, fi = prepare.prepare_params(
+        spec, synth.random_pq_params(spec, seed=0), batch_hint=args.batch,
+        conv_impl=args.conv_impl, fc_impl=args.fc_impl, dtype=dtype,
+        device=dev)
+    x = torch.from_numpy(synth.random_input(spec, args.batch, seed=1)).to(dev)
+    return lambda: network.forward(prepared, x, spec=spec, conv_impls=ci,
+                                   fc_impls=fi, compute_dtype=act, device=dev)
+
+
+def fused_estimate_check(family_pq, dev, smi: str) -> None:
+    """The profiler's decode estimate for a fused conv (the launch plan's
+    row tiles times one pq_decode of the same codebooks and ids) beside
+    pq_conv_fused's time less cuDNN's on the decoded weight, at ResNet-50's
+    two fused geometries (B=64, its quantized conv2 weights). Logged; the
+    estimate is a model and has no limit."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.core import ConvSpec
+    from qcnn_tpu_torch.eval import profiler
+    from qcnn_tpu_torch.ops import lut as lut_ops
+    from qcnn_tpu_torch.ops.cuda import pq_conv_fused
+
+    flush = flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for key, hw, _ in RESNET50_FUSED:
+        leaf = family_pq[key]["conv2"]
+        p = {name: torch.as_tensor(np.ascontiguousarray(leaf[name]),
+                                   device=dev)
+             for name in ("codebooks", "assignments", "bias")}
+        p["codebooks"] = p["codebooks"].bfloat16()
+        p["bias"] = p["bias"].float()
+        cin = p["assignments"].shape[0]  # conv2 keeps its width
+        x = torch.randn((64, hw, hw, cin), generator=gen,
+                        device=dev).bfloat16()
+        replays, decode = profiler._fused_decode(
+            ConvSpec(kernel=3, out_channels=cin, pad=1), p, x, "fusedconv")
+        decode_ms = time_ms(decode, flush)
+        fused_ms = time_ms(lambda: pq_conv_fused.pq_conv_fused(
+            x, p, stride=1, pad=1), flush)
+        w = lut_ops.decode_conv_kernel(p["codebooks"], p["assignments"], cin)
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        lib_ms = time_ms(lambda: F.conv2d(xn, wn, padding=1), flush)
+        log(f"profile fused-est-decode resnet50 {key}.conv2 B=64 "
+            f"{hw}x{hw} {cin}->{cin}: estimate={replays} x pq_decode "
+            f"{decode_ms:.5f} = {replays * decode_ms:.5f} ms; pq_conv_fused "
+            f"{fused_ms:.5f} - cuDNN on the decoded weight {lib_ms:.5f} = "
+            f"{fused_ms - lib_ms:.5f} ms card={smi}")
+
+
+def phase_profile(dev, smi: str, family_pq=None) -> dict:
+    """Phase 13: `python -m qcnn_tpu_torch profile` through cli.main, as a
+    user runs it, for each of PROFILE_RUNS: the table (printed here), a
+    positive time on every conv and FC row (every segment of a family),
+    the launch counts of the run (its owning kernels, and no other), and
+    the sum of the rows against the device-busy ms of the same step
+    (profile_steps), within PROFILE_RATIO. family_pq: ResNet-50's PQ
+    params from phase 12 (the same bits as the command's), else made
+    here, and used for fused_estimate_check too. Every run is logged
+    before a broken limit fails the phase. Returns the launch counts of
+    each run."""
+    import contextlib
+    import io
+
+    from qcnn_tpu_torch import cli
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+
+    from qcnn_tpu_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    if family_pq is None:
+        spec = resnet.resnet50()
+        family_pq = resnet.quantize_params(
+            spec, resnet.init_dense_params(spec, seed=0), device=dev)
+    counts, failed = {}, []
+    for label, argv, owners in PROFILE_RUNS:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        cuda_ops.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["profile", *argv, "--device", dev.type])
+        torch.cuda.synchronize()
+        c = cuda_ops.launches()
+        run_s = time.perf_counter() - t0
+        counts[f"profile {label}"] = c
+        table = buf.getvalue().splitlines()
+        for line in table:
+            log(f"profile-table {label}: {line}")
+        family = argv[1].startswith("resnet")
+        if family:
+            rows = [(m[1], "segment", float(m[2]) * 1e3) for m in
+                    map(PROFILE_SEGMENT.match, table) if m and m[1] != "total"]
+        else:
+            rows = [(m[1], m[2], float(m[3])) for m in
+                    map(PROFILE_ROW.match, table) if m]
+        rows_ms = sum(us for _, _, us in rows) / 1e3
+        fwd = profile_step(argv, dev, family_pq)
+        fwd()
+        busy = profile_steps(fwd, 3, f"step of profile {label}")
+        ratio = rows_ms / busy
+        launched = sorted(k for k, v in c.items() if v)
+        log(f"profile {label}: rc={rc} rows={len(rows)} sum_of_rows_ms="
+            f"{rows_ms:.4f} step_device_busy_ms={busy:.4f} ratio={ratio:.3f}"
+            f" (limits {PROFILE_RATIO}) launches="
+            f"{ {k: c[k] for k in launched} } seconds={run_s:.2f} card={smi}")
+        timed = [r for r in rows if family or r[0] in ("Conv", "FC")]
+        problems = []
+        if rc != 0:
+            problems.append(f"exit code {rc}")
+        if not timed or not all(us > 0 for _, _, us in timed):
+            problems.append(f"rows {timed}")
+        if launched != sorted(owners):
+            problems.append(f"launched {launched}, expected {sorted(owners)}")
+        if not PROFILE_RATIO[0] <= ratio <= PROFILE_RATIO[1]:
+            problems.append(f"sum of rows / device-busy = {ratio:.3f}")
+        if problems:
+            failed.append(f"{label}: " + "; ".join(problems))
+            log(f"profile FAILED {label}: " + "; ".join(problems))
+    fused_estimate_check(family_pq, dev, smi)
+    log(f"profile phase seconds={time.perf_counter() - t_phase:.2f}")
+    if failed:
+        raise AssertionError(f"phase 13: {len(failed)} runs failed: "
+                             + " | ".join(failed))
     return counts
+
+
+def quantize_repro(dev, smi: str) -> None:
+    """--quantize-repro: quantize AlexNet (plain, and error-corrected over
+    32 random calibration inputs) and ResNet-50 (plain) twice each with
+    one seed, and name the first PQ layer, and the first k-means step, at
+    which the two runs part: every k-means seeding and Lloyd iteration of
+    both runs is hashed (its centroids' bits) and the hashes are compared
+    in order. Then AlexNet plain and error-corrected with the quantizer's
+    seeds 0, 1 and 2 (the same calibration inputs): the logits' relative
+    L2 against the dense net on the calibration and on 64 held-out inputs,
+    as phase 12 measures them for seed 0. Uses only what every version of
+    the quantizer has, so that --root can point it at an older
+    checkout."""
+    import hashlib
+
+    from qcnn_tpu_torch.models import network, resnet, synth, zoo
+    from qcnn_tpu_torch.quantizer import kmeans
+    from qcnn_tpu_torch.quantizer.sequential import quantize_network
+
+    spec, rspec = zoo.alexnet(), resnet.resnet50()
+    dense = synth.random_dense_params(spec, seed=0)
+    rdense = resnet.init_dense_params(rspec, seed=0)
+    x_cal = np.random.default_rng(1).standard_normal(
+        (QUANT_CALIB, spec.in_height, spec.in_width, spec.in_channels)
+    ).astype(np.float32)
+    runs = {
+        "alexnet plain": lambda: quantize_network(
+            torch.Generator(device=dev).manual_seed(0), spec, dense),
+        "alexnet ec": lambda: quantize_network(
+            torch.Generator(device=dev).manual_seed(0), spec, dense,
+            x_calib=x_cal, seed=0),
+        "resnet50 plain": lambda: resnet.quantize_params(rspec, rdense,
+                                                         device=dev),
+    }
+    init, refit = kmeans._init_centroids, kmeans._refit
+    trace = []
+
+    def digest(c):
+        return hashlib.sha1(c.float().cpu().numpy().tobytes()).hexdigest()
+
+    def traced_init(*args):
+        c = init(*args)
+        trace.append(("seeding", digest(c)))
+        return c
+
+    def traced_refit(*args):
+        c = refit(*args)
+        trace.append(("iteration", digest(c)))
+        return c
+
+    kmeans._init_centroids, kmeans._refit = traced_init, traced_refit
+    try:
+        for label, run in runs.items():
+            steps, outs = [], []
+            for _ in range(2):
+                trace.clear()
+                t0 = time.perf_counter()
+                outs.append(run())
+                steps.append(list(trace))
+                seconds = time.perf_counter() - t0
+            diff = differing_layers(*outs)
+            first = next((i for i, (a, b) in enumerate(zip(*steps))
+                          if a != b), None)
+            seedings = [i for i, (k, _) in enumerate(steps[0])
+                        if k == "seeding"]
+            where = "none"
+            if first is not None:
+                start = max(i for i in seedings if i <= first)
+                where = (f"k-means run {seedings.index(start) + 1} of "
+                         f"{len(seedings)}, {steps[0][first][0]} "
+                         f"{first - start}")
+            log(f"quantize repro {label}: {len(pq_leaves(outs[0]))} PQ "
+                f"layers, {len(diff)} differ bit for bit (first "
+                f"{diff[0] if diff else 'none'}); k-means steps "
+                f"{len(steps[0])}, first that differs: {where}; "
+                f"seconds a run={seconds:.2f} card={smi}")
+    finally:
+        kmeans._init_centroids, kmeans._refit = init, refit
+
+    def logits(p, x):
+        return network.forward(p, x, spec=spec, with_softmax=False,
+                               device=dev).float()
+
+    x_held = np.random.default_rng(2).standard_normal(
+        (QUANT_HELD_OUT, *x_cal.shape[1:])).astype(np.float32)
+    inputs = {"calibration": torch.from_numpy(x_cal).to(dev),
+              "held-out": torch.from_numpy(x_held).to(dev)}
+    want = {tag: logits(dense, x) for tag, x in inputs.items()}
+    for seed in (0, 1, 2):
+        for mode, kw in (("plain", {}), ("ec", {"x_calib": x_cal})):
+            q = quantize_network(torch.Generator(device=dev).manual_seed(
+                seed), spec, dense, seed=seed, **kw)
+            log(f"quantize seeds alexnet {mode} seed={seed}: rel_l2 vs "
+                "dense " + " ".join(
+                    f"{tag}={rel_l2(logits(q, x), want[tag]):.6f}"
+                    for tag, x in inputs.items()) + f" card={smi}")
 
 
 def main() -> int:
@@ -3398,26 +3791,30 @@ def main() -> int:
     only.add_argument("--only-quantize", action="store_true",
                       help="stop after the build and phase 12 (the "
                            "quantizer and the A4 conv strategies)")
+    only.add_argument("--only-profile", action="store_true",
+                      help="stop after the build and phase 13 (the profile "
+                           "command)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
                            "of the port has")
+    only.add_argument("--quantize-repro", action="store_true",
+                      help="only quantize AlexNet and ResNet-50 twice each "
+                           "with one seed and name where the runs part")
     parser.add_argument("--root", default=None,
-                        help="with --gather-times: the checkout whose "
-                             "qcnn_tpu_torch is timed (default: this one)")
+                        help="with --gather-times or --quantize-repro: the "
+                             "checkout whose qcnn_tpu_torch runs (default: "
+                             "this one)")
     args = parser.parse_args()
     t_script = time.perf_counter()
-    if args.root and not args.gather_times:
-        parser.error("--root goes with --gather-times")
+    if args.root and not (args.gather_times or args.quantize_repro):
+        parser.error("--root goes with --gather-times or --quantize-repro")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(
         args.root or os.path.dirname(os.path.abspath(__file__))))
-    from qcnn_tpu_torch.models import resnet, synth, vit, zoo
-    from qcnn_tpu_torch.ops import cuda as cuda_ops
-    from qcnn_tpu_torch.ops.cuda import _build
 
     # phase 1: device
     smi = subprocess.run(
@@ -3425,6 +3822,15 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(f"nvidia-smi: {smi}")
+    if args.quantize_repro:
+        quantize_repro(torch.device("cuda", 0), smi)
+        return 0
+    global time_ms, flush_buffer
+    from qcnn_tpu_torch.models import resnet, synth, vit, zoo
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.ops.cuda import _build
+    from qcnn_tpu_torch.utils.timing import flush_buffer, time_ms
+
     dev = torch.device("cuda", 0)
     gpu_name = torch.cuda.get_device_name(0)
     peaks = peaks_for(gpu_name)
@@ -3440,7 +3846,7 @@ def main() -> int:
     spec = zoo.alexnet()
     params = synth.random_pq_params(spec, seed=0)
     geo = alexnet_geometry(spec, params)
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = flush_buffer(dev)
 
     if args.gather_times:
         phase_gather_times(geo, spec, dev, flush)
@@ -3453,9 +3859,15 @@ def main() -> int:
         return 0
     if args.only_quantize:
         del flush
-        counts = phase_quantize(spec, params, dev, gpu_name)
+        counts, _ = phase_quantize(spec, params, dev, gpu_name)
         log(f"script seconds={time.perf_counter() - t_script:.2f}")
         log(json.dumps({"partial": "quantize only", "launches": counts}))
+        return 0
+    if args.only_profile:
+        del flush
+        counts = phase_profile(dev, smi)
+        log(f"script seconds={time.perf_counter() - t_script:.2f}")
+        log(json.dumps({"partial": "profile only", "launches": counts}))
         return 0
     check_f32_conv(dev)
     t0 = time.perf_counter()
@@ -3522,9 +3934,16 @@ def main() -> int:
     rows["pq_fc_fused"]["max_abs_err"] = max(
         rows["pq_fc_fused"]["max_abs_err"], fc_err)
     # phase 12: the quantizer and the A4 conv strategies
-    counts |= phase_quantize(spec, params, dev, gpu_name)
+    quant_counts, family_pq = phase_quantize(spec, params, dev, gpu_name)
+    counts |= quant_counts
+    # phase 13: the profile command
+    counts |= phase_profile(dev, smi, family_pq)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
+    owners_of = {}
+    for label, _, owned in PROFILE_RUNS:
+        for name in owned:  # what phase 13 held each run to
+            owners_of.setdefault(name, []).append(f"profile {label}")
     owners = {  # the paths that own each kernel
         "pq_decode": ("alexnet memory", "resnet50 memory",
                       "io alexnet classify", "io resnet50 family",
@@ -3554,6 +3973,7 @@ def main() -> int:
     }
     launches = {}
     for name, paths in owners.items():
+        paths = (*paths, *owners_of.get(name, ()))
         for path_name in paths:
             if counts[path_name].get(name, 0) == 0:
                 raise AssertionError(f"{name} was never launched on the "

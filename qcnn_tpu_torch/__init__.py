@@ -7,3 +7,5 @@ They run on the card unless the caller passes ``device="cpu"``. The PQ
 kernels are hand-written CUDA in ``csrc/``, built on first use
 (``ops/cuda/_build.py``).
 """
+
+__version__ = "0.1.0"

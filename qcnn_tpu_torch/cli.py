@@ -8,14 +8,13 @@ reference lacks) is a subcommand.
 Every subcommand that runs a model takes ``--device {cuda,cpu}``, default
 ``cuda``: it raises without a card unless the CPU is asked for, and then
 runs the kernels' plain versions (``quantize`` and ``make-family`` also take
-the JAX package's ``--cpu`` as an alias of ``--device cpu``). ``profile``
-needs the per-layer profiler (ROADMAP.md A13), which is not ported: it exits
-non-zero with a message naming the item.
+the JAX package's ``--cpu`` as an alias of ``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -784,10 +783,105 @@ def cmd_route(args) -> int:
 # profile — per-layer device times (DispElpsTime, CaffeEva.cc:297-326)
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _profiler_trace(directory, device):
+    """With a directory: the block under ``torch.profiler`` (host and, on
+    the card, device activity), its Chrome trace written into the
+    directory at the end. A trace that cannot be written raises."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(directory, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(directory, "profile_trace.json")
+    prof.export_chrome_trace(path)
+    log(f"wrote profiler trace {path}")
+
+
 def cmd_profile(args) -> int:
-    raise NotImplementedError(
-        "profile needs the per-layer profiler, which is not ported yet: "
-        "ROADMAP.md A13")
+    from qcnn_tpu_torch._device import resolve_device
+    from qcnn_tpu_torch.eval.profiler import (
+        format_table,
+        profile_layers,
+        profile_step_decode,
+    )
+    from qcnn_tpu_torch.models import synth
+    from qcnn_tpu_torch.models.loader import load_alexnet_reference
+    from qcnn_tpu_torch.models.prepare import act_dtype_for, prepare_params
+    from qcnn_tpu_torch.models.zoo import get_model
+
+    device = resolve_device(args.device)
+    if args.model in _FAMILY_MODELS:
+        return _profile_family(args, device)
+    spec = get_model(args.model)
+    if args.model == "alexnet" and os.path.isdir(args.reference_dir):
+        params = load_alexnet_reference(
+            args.reference_dir, synthesize_missing=True
+        ).params
+    else:
+        params = synth.random_pq_params(spec, seed=0)
+    dtype = _dtype_arg(args.dtype)
+    prepared, ci, fi = prepare_params(
+        spec, params, batch_hint=args.batch, conv_impl=args.conv_impl,
+        fc_impl=args.fc_impl, dtype=dtype, device=device,
+    )
+    # the one activation-dtype rule (an inline copy could drift from what
+    # the forwards execute)
+    act_dtype = act_dtype_for(dtype)
+    x = synth.random_input(spec, args.batch, seed=1)
+    with _profiler_trace(args.trace, device):
+        profs = profile_layers(spec, prepared, x, conv_impls=ci, fc_impls=fi,
+                               compute_dtype=act_dtype, device=device)
+        step_decode = profile_step_decode(spec, prepared, ci, device=device)
+    print(format_table(profs, step_decode_seconds=step_decode))
+    return 0
+
+
+def _profile_family(args, device) -> int:
+    """Per-segment time table for ResNet/ViT (the family analogue of the
+    per-layer DispElpsTime tables). --conv-impl/--fc-impl 'auto' decodes
+    the weights at load, as the JAX package's command does; 'memory' keeps
+    them compressed and decodes in the step (prepare_params(memory=True))."""
+    import numpy as np
+
+    from qcnn_tpu_torch.eval.profiler import profile_segments
+    from qcnn_tpu_torch.models.prepare import act_dtype_for
+
+    impls = {args.conv_impl, args.fc_impl}
+    if not impls <= {"auto", "memory"}:
+        raise ValueError(f"profile --model {args.model}: the families take "
+                         f"--conv-impl/--fc-impl auto or memory, got "
+                         f"{sorted(impls)}")
+    memory = "memory" in impls
+    family, fam, spec = _family_module(args.model)
+    size = spec.in_size if family == "resnet" else spec.image_size
+    dtype = _dtype_arg(args.dtype)
+    pq = fam.quantize_params(spec, fam.init_dense_params(spec, seed=0),
+                             device=device)
+    prepared = fam.prepare_params(spec, pq, dtype=dtype, memory=memory,
+                                  device=device)
+    act_dtype = act_dtype_for(dtype)
+    x = np.random.default_rng(1).standard_normal(
+        (args.batch, size, size, 3)
+    ).astype(np.float32)
+    segs = fam.forward_segments(spec, compute_dtype=act_dtype)
+    with _profiler_trace(args.trace, device):
+        rows = profile_segments(segs, x, prepared, device=device)
+    total = sum(t for _, t in rows)
+    mode = "memory mode" if memory else "decoded at load"
+    print(f"{args.model} batch={args.batch} {args.dtype} {mode} "
+          f"(synthetic PQ weights)")
+    print(f"{'segment':<12} {'ms':>9} {'%':>6}")
+    for name, t in rows:
+        print(f"{name:<12} {t*1e3:>9.3f} {100*t/max(total,1e-12):>6.1f}")
+    print(f"{'total':<12} {total*1e3:>9.3f}")
+    return 0
 
 
 def _add_device(p) -> None:
@@ -863,7 +957,7 @@ def build_parser() -> argparse.ArgumentParser:
     im.add_argument("--synthesize-missing", action="store_true")
     im.add_argument("--store", default="npz", choices=["npz", "orbax"],
                     help="parameter array store backend (orbax: not "
-                         "ported yet, ROADMAP.md A13)")
+                         "ported yet, ROADMAP.md A13.2)")
     im.set_defaults(fn=cmd_import)
 
     ex = sub.add_parser("export", help="native checkpoint -> reference files")
@@ -972,7 +1066,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("profile",
                        help="per-layer (zoo) / per-segment (family) "
-                            "device times (not ported yet: ROADMAP.md A13)")
+                            "device times")
     p.add_argument("--model", default="alexnet",
                    choices=["alexnet", "caffenet", "vgg_cnn_s", "vgg16",
                             "caffenet_fgb", "caffenet_fgd",
@@ -983,7 +1077,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--conv-impl", default="auto")
     p.add_argument("--fc-impl", default="auto")
     p.add_argument("--trace", default=None,
-                   help="directory for a profiler trace")
+                   help="directory for a torch.profiler Chrome trace")
+    _add_device(p)
     p.set_defaults(fn=cmd_profile)
     return ap
 

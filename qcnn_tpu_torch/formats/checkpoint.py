@@ -3,7 +3,7 @@
 A copy of ``qcnn_tpu/formats/checkpoint.py`` that writes the same files, so
 a checkpoint written by either package loads in the other. Only the npz
 store is ported: ``store="orbax"``, and a checkpoint that holds only
-``params_ts/``, raise NotImplementedError naming ROADMAP.md A13.
+``params_ts/``, raise NotImplementedError naming ROADMAP.md A13.2.
 
 Replaces the reference's loose-file weight directory (CaffePara::LoadLayerPara,
 src/CaffePara.cc:239-306, where the architecture lives in compiled-in C++ and
@@ -113,12 +113,12 @@ def unpack_indices(
 
 # ---------------------------------------------------------------------------
 # Array stores: npz. The JAX package also writes an Orbax/TensorStore store
-# (``params_ts/``); the port's counterpart is ROADMAP.md A13.
+# (``params_ts/``); the port's counterpart is ROADMAP.md A13.2.
 # ---------------------------------------------------------------------------
 
 _ORBAX_DIR = "params_ts"
 _ORBAX_NOT_PORTED = ("the orbax array store is not ported yet: ROADMAP.md "
-                     "A13 (save with store='npz')")
+                     "A13.2 (save with store='npz')")
 
 
 def _write_arrays(path: str, arrays: dict, store: str) -> None:

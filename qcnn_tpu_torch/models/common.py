@@ -58,7 +58,7 @@ def serving_defaults(model: str) -> dict:
     """Per-family serving config {max_batch, buckets}, copied from the JAX
     package. Its ladders come from batch sweeps on a TPU
     (qcnn_tpu/models/common.py:69-102) and were not measured on the H100;
-    ROADMAP.md A10 queues that."""
+    ROADMAP.md A7b queues that."""
     m = model.lower()
     if m.startswith("vit"):
         return {"max_batch": 32, "buckets": (1, 8, 32)}

@@ -120,6 +120,81 @@ def _to_device(p: Optional[dict], device: torch.device) -> Optional[dict]:
     return out
 
 
+def step_convs(spec: ModelSpec, params: Sequence[Optional[dict]],
+               conv_impls: Sequence[str], device: torch.device,
+               upto: Optional[int] = None) -> dict:
+    """{layer index: (params on ``device``, impl, channels per group)} of
+    the PQ convs before layer ``upto``: what :func:`forward` hands
+    ``ops.conv.instep_decodes``, which decodes those with an in-step impl
+    in one launch at the start of the step."""
+    shapes = spec.feature_shapes(batch=1)
+    return {
+        i: (_to_device(params[i], device), conv_impls[i],
+            shapes[i][3] // layer.groups)
+        for i, layer in enumerate(spec.layers[:upto])
+        if isinstance(layer, ConvSpec) and conv_impls[i] != "dense"}
+
+
+def fc_input(x: torch.Tensor, first_fc: bool) -> torch.Tensor:
+    """An FC's (B, features) input; the first FC flattens NHWC in NCHW
+    order to match the Caffe weight layout (CaffeEva.cc:184-204)."""
+    if first_fc:
+        x = x.permute(0, 3, 1, 2)
+    return x.reshape(x.shape[0], -1)
+
+
+def apply_layer(layer, p: Optional[dict], x: torch.Tensor, impl: str, *,
+                first_fc: bool = False, compute_dtype=None,
+                with_softmax: bool = True,
+                decoded: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer of :func:`forward`: ``impl`` is the layer's resolved
+    strategy ('dense' for prepared or int8 weights), ``decoded`` its weight
+    from the step's grouped decode (``ops.conv.instep_decodes``; None
+    decodes in the layer)."""
+    if isinstance(layer, ConvSpec):
+        conv = dict(stride=layer.stride, pad=layer.pad, groups=layer.groups)
+        if impl == "dense" and "kernel_q" in p:
+            x = conv_dense_int8(x, p["kernel_q"], p["scale"], p["bias"],
+                                act_scale=p.get("act_scale"),
+                                out_scale=p.get("out_scale"), **conv)
+        elif impl == "dense":
+            x = conv_dense(x, p["kernel"], p["bias"],
+                           out_dtype=compute_dtype, **conv)
+        else:
+            x = pq_conv(x, p, impl=impl, out_dtype=compute_dtype,
+                        decoded=decoded, **conv)
+    elif isinstance(layer, FCSpec):
+        x = fc_input(x, first_fc)
+        if impl == "dense" and "weight_q" in p:
+            x = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
+                              act_scale=p.get("act_scale"),
+                              out_scale=p.get("out_scale"))
+        elif impl == "dense":
+            x = fc_dense(x, p["weight"], p["bias"], out_dtype=compute_dtype)
+        else:
+            x = pq_fc(x, p, impl=impl, out_dtype=compute_dtype)
+    elif isinstance(layer, PoolSpec):
+        return caffe_max_pool(x, kernel=layer.kernel, stride=layer.stride,
+                              pad=layer.pad)
+    elif isinstance(layer, ReLUSpec):
+        return relu(x)
+    elif isinstance(layer, LRNSpec):
+        return lrn(x, size=layer.size, alpha=layer.alpha, beta=layer.beta,
+                   k=layer.k, channel_map=layer.channel_map,
+                   sum_dtype=compute_dtype)
+    elif isinstance(layer, DropoutSpec):
+        return dropout_inference(x)
+    elif isinstance(layer, SoftmaxSpec):
+        return softmax(x.float()) if with_softmax else x
+    else:
+        raise TypeError(f"unhandled layer spec: {layer!r}")
+    # conv and FC: activations between layers in compute_dtype (int8 codes
+    # stay codes)
+    if compute_dtype is not None and x.dtype != torch.int8:
+        x = x.to(compute_dtype)
+    return x
+
+
 def forward(
     params: Sequence[Optional[dict]],
     x,
@@ -182,12 +257,7 @@ def forward(
             act_amax[i] = v.float().abs().amax()
 
     # every PQ conv that decodes in the step, in one launch at its start
-    shapes = spec.feature_shapes(batch=1)
-    pq_convs = {
-        i: (_to_device(params[i], device), conv_impls[i],
-            shapes[i][3] // layer.groups)
-        for i, layer in enumerate(spec.layers[:upto])
-        if isinstance(layer, ConvSpec) and conv_impls[i] != "dense"}
+    pq_convs = step_convs(spec, params, conv_impls, device, upto)
     decoded = instep_decodes(pq_convs)
 
     first_fc_done = False
@@ -195,65 +265,15 @@ def forward(
         if i == upto:
             return x
         p = pq_convs[i][0] if i in pq_convs else _to_device(p, device)
-        if isinstance(layer, ConvSpec):
+        first_fc = isinstance(layer, FCSpec) and not first_fc_done
+        first_fc_done = first_fc_done or first_fc
+        if isinstance(layer, (ConvSpec, FCSpec)):
             record_amax(i, x)
-            if conv_impls[i] == "dense" and "kernel_q" in p:
-                x = conv_dense_int8(
-                    x, p["kernel_q"], p["scale"], p["bias"],
-                    stride=layer.stride, pad=layer.pad, groups=layer.groups,
-                    act_scale=p.get("act_scale"),
-                    out_scale=p.get("out_scale"),
-                )
-            elif conv_impls[i] == "dense":
-                x = conv_dense(
-                    x, p["kernel"], p["bias"], stride=layer.stride,
-                    pad=layer.pad, groups=layer.groups,
-                    out_dtype=compute_dtype,
-                )
-            else:
-                x = pq_conv(
-                    x, p, stride=layer.stride, pad=layer.pad,
-                    groups=layer.groups, impl=conv_impls[i],
-                    out_dtype=compute_dtype, decoded=decoded.get(i),
-                )
-            if compute_dtype is not None and x.dtype != torch.int8:
-                x = x.to(compute_dtype)
-        elif isinstance(layer, PoolSpec):
-            x = caffe_max_pool(
-                x, kernel=layer.kernel, stride=layer.stride, pad=layer.pad
-            )
-        elif isinstance(layer, FCSpec):
-            if not first_fc_done:
-                # NCHW flatten to match Caffe weight order (CaffeEva.cc:184-204)
-                x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
-                first_fc_done = True
-            else:
-                x = x.reshape(x.shape[0], -1)
-            record_amax(i, x)
-            if fc_impls[i] == "dense" and "weight_q" in p:
-                x = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
-                                  act_scale=p.get("act_scale"),
-                                  out_scale=p.get("out_scale"))
-            elif fc_impls[i] == "dense":
-                x = fc_dense(x, p["weight"], p["bias"],
-                             out_dtype=compute_dtype)
-            else:
-                x = pq_fc(x, p, impl=fc_impls[i], out_dtype=compute_dtype)
-            if compute_dtype is not None and x.dtype != torch.int8:
-                x = x.to(compute_dtype)
-        elif isinstance(layer, ReLUSpec):
-            x = relu(x)
-        elif isinstance(layer, LRNSpec):
-            x = lrn(x, size=layer.size, alpha=layer.alpha, beta=layer.beta,
-                    k=layer.k, channel_map=layer.channel_map,
-                    sum_dtype=compute_dtype)
-        elif isinstance(layer, DropoutSpec):
-            x = dropout_inference(x)
-        elif isinstance(layer, SoftmaxSpec):
-            if with_softmax:
-                x = softmax(x.float())
-        else:
-            raise TypeError(f"unhandled layer spec: {layer!r}")
+        impl = (conv_impls[i] if isinstance(layer, ConvSpec)
+                else fc_impls[i])
+        x = apply_layer(layer, p, x, impl, first_fc=first_fc,
+                        compute_dtype=compute_dtype,
+                        with_softmax=with_softmax, decoded=decoded.get(i))
     if collect_act_amax:
         return x, act_amax
     return x

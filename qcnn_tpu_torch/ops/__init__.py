@@ -6,6 +6,7 @@ kernels, (Cin, Cout) weights) so the two can be compared like for like."""
 from qcnn_tpu_torch.ops.conv import conv_dense, pq_conv  # noqa: F401
 from qcnn_tpu_torch.ops.fc import fc_dense, pq_fc  # noqa: F401
 from qcnn_tpu_torch.ops.lut import (  # noqa: F401
+    assignments_one_hot,
     build_lut,
     decode_conv_kernel,
     decode_fc_weight,

@@ -145,6 +145,15 @@ def plan_conv(b: int, h: int, w: int, cin: int, cout: int, kh: int, pad: int,
                 2 * (128 + 64) * (KC + 8) * 2, 0)
 
 
+def decode_replays(plan: Plan) -> int:
+    """How many times a launch under ``plan`` of ``pq_fc_fused`` or
+    ``pq_conv_fused`` decodes each weight element: once for each tile of
+    rows, as every block decodes the slice of the weight that it multiplies
+    (the row tile is the grid's x in the wgmma kernel, its y in the
+    general ones)."""
+    return plan.grid[0] if plan.variant == "wgmma" else plan.grid[1]
+
+
 # ---- pq_fc: the batch-tiled LUT gather ------------------------------------
 
 GATHER_THREADS = 512       # threads a block; a thread owns 1 or 2 outputs

@@ -2,20 +2,22 @@
 
 Port of ``qcnn_tpu/quantizer/kmeans.py``. All S sub-spaces are clustered
 at once: the data is (S, N, D), and every Lloyd iteration is one batched
-distance computation and one scatter-add of the members into their
-centroids. It runs on the device of its tensors.
+distance computation and one sum of each cluster's members
+(:func:`cluster_sums`). It runs on the device of its tensors.
 
 The JAX package's random key becomes an explicit ``torch.Generator`` on
 that device: :func:`split` takes the place of JAX's key split, and
 the D² sampling of the k-means++ seeding draws by inverse CDF.
 The draws cannot match JAX's, so a seed reproduces the port's own runs
-only, and on the card only up to the order of the scatter-add's atomic
-float sums.
+only: on the CPU and on the card, bit for bit. The members are summed in
+a fixed order (sorted by cluster, then a segment sum), where the JAX
+package contracts a one-hot (qcnn_tpu/quantizer/kmeans.py:44-50): a
+scatter-add would be atomic float adds on the card, in an order that
+changes from run to run, and the one-hot costs K/D times the sum's work.
 
 Memory: the (S, N, K) distance tensor is formed a chunk of sub-spaces at a
-time (:data:`CHUNK_ELEMENTS`), and the update sums with ``scatter_add_``:
-at AlexNet fc6 (S = 2304, N = 4096, K = 32) either the whole distance
-tensor or a one-hot of the assignments would be 1.2 GB of float32.
+time (:data:`CHUNK_ELEMENTS`): at AlexNet fc6 (S = 2304, N = 4096, K = 32)
+it would be 1.2 GB of float32 whole.
 """
 
 from __future__ import annotations
@@ -71,22 +73,30 @@ def _assign(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                       .argmin(dim=-1) for i in range(0, s, step)])
 
 
-def _update(x: torch.Tensor, assign: torch.Tensor, k: int
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Member sums (S, K, D) and counts (S, K, 1) per (sub-space, cluster);
-    empty clusters keep their previous position via the caller's where()."""
+def cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Member sums (S, K, D) and counts (S, K, 1) per (sub-space, cluster)
+    of x (S, N, D) under ids (S, N) in [0, k).
+
+    Each sub-space's members are sorted by id (stably: a cluster keeps its
+    members in index order) and each cluster's run is summed in that order
+    by ``torch.segment_reduce``: a fixed order of float32 additions, the
+    one of a sequential scatter-add, and the same bits on every run."""
     s, n, d = x.shape
-    sums = torch.zeros((s, k, d), dtype=torch.float32, device=x.device)
-    sums.scatter_add_(1, assign[..., None].expand(s, n, d), x)
-    counts = torch.zeros((s, k), dtype=torch.float32, device=x.device)
-    counts.scatter_add_(1, assign, torch.ones_like(assign,
-                                                   dtype=torch.float32))
-    return sums, counts[..., None]
+    order = torch.argsort(assign, dim=1, stable=True)
+    ids = torch.gather(assign, 1, order)
+    members = torch.gather(x, 1, order[..., None].expand(s, n, d))
+    codes = torch.arange(k + 1, device=x.device).expand(s, k + 1)
+    counts = torch.searchsorted(ids, codes.contiguous()).diff(dim=1)
+    sums = torch.segment_reduce(members.reshape(s * n, d), "sum",
+                                lengths=counts.reshape(-1), axis=0,
+                                unsafe=True)
+    return sums.reshape(s, k, d), counts.to(torch.float32)[..., None]
 
 
 def _refit(x: torch.Tensor, c: torch.Tensor, assign: torch.Tensor
            ) -> torch.Tensor:
-    sums, counts = _update(x, assign, c.shape[1])
+    sums, counts = cluster_sums(x, assign, c.shape[1])
     fresh = sums / counts.clamp_min(1.0)
     return torch.where(counts > 0, fresh, c)
 

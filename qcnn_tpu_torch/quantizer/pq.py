@@ -21,8 +21,10 @@ wrappers take NumPy arrays and run on the device of their generator, and
 return NumPy params as the JAX package's do. Float32 products run without
 TF32. The error-corrected rounds (S x rounds sequential steps: 6912 at
 AlexNet fc6) factor each sub-space's Gram matrix once per layer and hold
-no host sync in the loop: the assignment counts are scatter-adds, the
-solves ``cholesky_solve`` on that factor.
+no host sync in the loop: the members' counts and residual sums are
+products with the ids' one-hot (:func:`_member_sums`), the solves
+``cholesky_solve`` on that factor. Every sum has a fixed order, so a seed
+gives the same bits on every run, on the card too.
 """
 
 from __future__ import annotations
@@ -164,6 +166,18 @@ def quantize_error_corrected(
                                    rounds=rounds, ridge=ridge)
 
 
+def _member_sums(resid: torch.Tensor, assign: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Members per codeword (K,) and the sums of their residual columns
+    (B, K), for residuals (B, N) and ids (N,): the one-hot (N, K) summed
+    and ``resid @ onehot``, as the JAX package has them
+    (qcnn_tpu/quantizer/pq.py:205-210), in a fixed order of additions.
+    Call under ``_no_tf32``."""
+    onehot = (assign[:, None] == torch.arange(k, device=assign.device)
+              ).to(torch.float32)
+    return onehot.sum(dim=0), resid @ onehot
+
+
 def _error_corrected_rounds(w_units_in, xcal, codebooks, assignments, *,
                             num_subspaces, rounds, ridge) -> PQResult:
     """The rounds of :func:`quantize_error_corrected` from codebooks
@@ -179,7 +193,6 @@ def _error_corrected_rounds(w_units_in, xcal, codebooks, assignments, *,
     s_cnt, n_units, d = w_sub.shape
     b = x_sub.shape[1]
     k_cnt = codebooks.shape[1]
-    dev = w_sub.device
     x_flat = x_sub.permute(1, 0, 2).reshape(b, s_cnt * d)
     w_flat = w_sub.permute(1, 0, 2).reshape(n_units, s_cnt * d)
 
@@ -189,7 +202,6 @@ def _error_corrected_rounds(w_units_in, xcal, codebooks, assignments, *,
 
     codebooks = codebooks.float().clone()
     assigns = assignments.t().long().clone()                      # (S, N)
-    ones = torch.ones(n_units, dtype=torch.float32, device=dev)
     with _no_tf32():
         y_total = x_flat @ w_flat.t()                             # (B, N)
         # G_s = X_sᵀX_s (+ ridge), the same every round: factored once
@@ -213,11 +225,7 @@ def _error_corrected_rounds(w_units_in, xcal, codebooks, assignments, *,
                 a_new = cost.argmin(dim=1)                        # (N,)
                 # 2) refit: per codeword k solve
                 #    G c_k = X_sᵀ · mean residual of its members
-                counts = torch.zeros(k_cnt, dtype=torch.float32, device=dev)
-                counts.index_add_(0, a_new, ones)
-                member_sums = torch.zeros((b, k_cnt), dtype=torch.float32,
-                                          device=dev)
-                member_sums.index_add_(1, a_new, resid)           # (B, K)
+                counts, member_sums = _member_sums(resid, a_new, k_cnt)
                 rhs = (xs.t() @ member_sums) / counts.clamp_min(1.0)  # (D,K)
                 c_new = torch.cholesky_solve(rhs, chol[si]).t()   # (K, D)
                 c_new = torch.where(counts[:, None] > 0, c_new, cb)

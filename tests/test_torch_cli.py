@@ -306,21 +306,16 @@ def test_serve_family_checkpoint_matches_jax(ref, tmp_path):
     (["quantize", "a", "b"], "A11"),
     (["make-family", "resnet50", "out"], "A11"),
     (["serve", "--model", "resnet50", "--device", "cpu"], "A11"),
-    (["profile"], "A13"),
+    (["profile", "--model", "resnet50"], "A13.1"),
 ])
 def test_unported_subcommands_exit_nonzero_naming_the_item(argv, item,
-                                                           capsys,
                                                            monkeypatch):
-    """Only `profile` (A13) is left unported: it exits non-zero naming the
-    item. The quantizer's subcommands (A11) are ported: without a card
-    and without --device cpu they raise rather than run on the CPU, and
-    serve --model <family> builds its weights with the family's
-    quantize_params (tests/test_torch_sequential_quantize.py runs them)."""
-    if item == "A13":
-        rc, out, err = _run(tcli.main, argv, capsys)
-        assert rc != 0
-        assert f"ROADMAP.md {item}" in err and out == ""
-        return
+    """Every subcommand is ported now: the quantizer's (A11) and the
+    profiler's (A13.1). Without a card and without --device cpu they raise
+    rather than run on the CPU, and serve --model <family> builds its
+    weights with the family's quantize_params
+    (tests/test_torch_sequential_quantize.py runs them,
+    tests/test_torch_profiler.py runs profile)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if argv[0] != "serve":
         with pytest.raises(RuntimeError, match="device='cpu'"):
