@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only-serve   # phases 1-2 and 11 (serving)
     python3 chip_smoke.py --only-quantize  # phases 1-2 and 12 (quantizer)
     python3 chip_smoke.py --only-profile   # phases 1-2 and 13 (profile)
+    python3 chip_smoke.py --only-parallel  # phases 1-2 and 14 (parallel)
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
@@ -228,6 +229,31 @@ Phases, each fatal on failure (any exception exits non-zero):
    estimate beside pq_conv_fused less cuDNN at ResNet-50's two fused
    geometries ('profile fused-est-decode' lines, no limit).
 
+14. the parallel layer (qcnn_tpu_torch/parallel/), in two parts. One card
+   gives no scaling number; the times here are the wrapper's overhead and
+   correctness runs.
+   (a) world size 1 on NCCL, in this process: AlexNet-PQ memory mode
+   (bf16) through shard_params + make_sharded_forward in the three FC
+   modes at B=256 (pq_decode 1 + pq_fc_fused 3 a forward) and B=1
+   (pq_decode 1 + pq_lut_gather 3), each through phase 5's loops and
+   launch checks, against network.forward on the same prepared params: the
+   same ops at world size 1, so column and replicated must give its bits
+   (row adds the bias after its all_reduce: its bits are logged, phase
+   5's limits hold); then the ms/step of the plain forward and the three
+   sharded ones in turns ('parallel overhead' lines). The mesh engine
+   (BatchingEngine(mesh=), max_batch 16) answers 16 requests: pq_decode 1
+   + pq_fc_fused 3 a batch, held to network.forward.
+   (b) 2 ranks sharing the card over gloo (NCCL refuses two ranks on one
+   GPU) run `python -m qcnn_tpu_torch.parallel.dryrun --world 2`: the tiny
+   spec in three FC modes; at fc6's geometry (B=8) the row and column FCs
+   with lutgather, fgather and pallas and the overlapped ring; lutgather
+   and fgather on data shards; AlexNet memory at B=64 for (dp, tp) = (2, 1)
+   and (1, 2), column and row; the mesh engine serving 16 requests;
+   ResNet-50 memory through make_dp_forward at B=16; ViT-B/16 memory over
+   2 pipeline stages with 4 microbatches at B=8. Every rank logs each
+   case's time, error and the launches of its sharded call, which must
+   include the case's kernels (PARALLEL_CASE_KERNELS) on every rank.
+
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
   (wgmma and general kernels) 1e-4 and pq_fc 1e-5 of the largest |output|
@@ -274,6 +300,12 @@ Limits (the script fails past them):
   AlexNet memory (the quantized checkpoint; conv lut and memory) against
   decode at load at phase 5's limits, ResNet-50 at phase 7's; EC's
   relative L2 below plain's on the calibration inputs.
+- phase 14: (a) column and replicated at world size 1 the bits of
+  network.forward, every mode and the engine within phase 5's limits;
+  (b) the dry run's own limits: the tiny spec 1e-4 of the largest
+  |probability|; the fc6 FCs 2e-3 of the largest |output| (f32 LUT sums),
+  fgather 3e-2 (bf16, the JAX dry run's bound); AlexNet and the engine
+  1e-2 and 99 %, ResNet-50 and ViT-B/16 5e-3 and 99 %.
 - phase 11: pq_fc_fused at M = 1 and 8 at phase 3's 1e-4; each answer's
   top-5 probabilities against the reference's at the same ids, and its
   top-1: AlexNet max |dprob| <= 1e-2 and top-1 equal on >= 99 % (against
@@ -289,7 +321,8 @@ The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
 --only-io, --only-vit, --only-serve, --only-quantize, --only-profile,
---gather-times or --quantize-repro it stops early and prints neither.
+--only-parallel, --gather-times or --quantize-repro it stops early and
+prints neither.
 """
 
 from __future__ import annotations
@@ -3668,6 +3701,241 @@ def phase_profile(dev, smi: str, family_pq=None) -> dict:
     return counts
 
 
+PARALLEL_BATCHES = (256, 1)
+PARALLEL_MODES = ("column", "row", "replicated")
+PARALLEL_REQUESTS = 16
+PARALLEL_BACKEND = "nccl"  # part (a): world size 1 on the card
+PARALLEL_WORLD = 2  # part (b): ranks sharing the one card over gloo
+PARALLEL_DRYRUN_DEVICE = "cuda"
+PARALLEL_TIMEOUT_S = 420  # the dry run's launcher stops its ranks at 390
+# part (b): the kernels each dry-run case must launch on every rank, by
+# the start of the case's name (qcnn_tpu_torch/parallel/dryrun.py)
+PARALLEL_CASE_KERNELS = {
+    "tiny": (),
+    "fc6 row lutgather": ("pq_lut_gather",),
+    "fc6 column lutgather": ("pq_lut_gather",),
+    "fc6 row fgather": ("pq_fc_fused",),
+    "fc6 column fgather": ("pq_fc_fused",),
+    "fc6 row pallas": ("pq_fc",),
+    "fc6 column pallas": ("pq_fc",),
+    "fc6 ring": ("pq_lut_gather",),
+    "fc6 dp lutgather": ("pq_lut_gather",),
+    "fc6 dp fgather": ("pq_fc_fused",),
+    "alexnet memory": ("pq_decode", "pq_fc_fused"),
+    "engine alexnet memory": ("pq_decode", "pq_fc_fused"),
+    "resnet50 memory": ("pq_conv_fused", "pq_decode"),
+    "vit_b16 memory pipeline": ("pq_decode",),
+}
+
+
+def alternate_ms(fns: dict, steps: int, rounds: int = 3) -> dict:
+    """ms/step of each of ``fns``, timed in turns (in order, then in
+    reverse, ``rounds`` times: a, b, c, c, b, a, ...) on the host clock
+    around a synchronize; the median of each one's loops."""
+    names = list(fns)
+    loops = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fns[name]()
+            torch.cuda.synchronize()
+            loops[name].append((time.perf_counter() - t0) / steps * 1e3)
+    return {name: float(np.median(v)) for name, v in loops.items()}
+
+
+def parallel_world_one(spec, params, dev, gpu_name: str, counts: dict
+                       ) -> None:
+    """Phase 14 (a): world size 1 on NCCL in this process."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from qcnn_tpu_torch.models import network, prepare, synth
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_forward,
+        shard_params,
+    )
+    from qcnn_tpu_torch.parallel.shardmap_ops import init_distributed
+    from qcnn_tpu_torch.serve.engine import BatchingEngine, EngineConfig
+
+    x_all = torch.from_numpy(synth.random_input(spec, 256, seed=1)).to(dev)
+    expect = {b: ({"pq_decode": 1, "pq_fc_fused": 3} if b > 2 else
+                  {"pq_decode": 1, "pq_lut_gather": 3})
+              for b in PARALLEL_BATCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0)
+        try:
+            backend = dist.get_backend()
+            log(f"parallel (a): world size 1, backend {backend}")
+            if backend != PARALLEL_BACKEND:
+                raise AssertionError(f"parallel (a): backend {backend}, "
+                                     f"expected {PARALLEL_BACKEND}")
+            mesh = make_mesh(dp=1, tp=1)
+            for b, per_fwd in expect.items():
+                prepared, conv_impls, fc_impls = prepare.prepare_params(
+                    spec, params, batch_hint=b, conv_impl="memory",
+                    fc_impl="memory", dtype=torch.bfloat16, device=dev)
+                x = x_all[:b]
+
+                def plain(prepared=prepared, conv_impls=conv_impls,
+                          fc_impls=fc_impls, x=x):
+                    return network.forward(
+                        prepared, x, spec=spec, conv_impls=conv_impls,
+                        fc_impls=fc_impls, compute_dtype=torch.bfloat16,
+                        device=dev)
+
+                want = plain().float()
+                fns = {"plain": plain}
+                for mode in PARALLEL_MODES:
+                    t0 = time.perf_counter()
+                    sharded = shard_params(spec, prepared, mesh,
+                                           fc_mode=mode, device=dev)
+                    fwd = make_sharded_forward(
+                        spec, mesh, fc_mode=mode, conv_impls=conv_impls,
+                        fc_impls=fc_impls, compute_dtype=torch.bfloat16,
+                        device=dev)
+                    prep_s = time.perf_counter() - t0
+
+                    def run(fwd=fwd, sharded=sharded, x=x):
+                        return fwd(sharded, x)
+
+                    label = f"parallel alexnet memory {mode} ws=1 B={b}"
+                    got, run_counts = drive(
+                        label, run, b, spec.num_classes,
+                        steps=10 if b > 1 else 50, per_fwd=per_fwd,
+                        gpu_name=gpu_name, resident=tensor_bytes(sharded),
+                        prep_s=prep_s, prof_steps=0)
+                    add_counts(counts.setdefault("parallel ws=1", {}),
+                               run_counts)
+                    same = torch.equal(got, want)
+                    log(f"parallel {mode} ws=1 B={b}: "
+                        + ("the bits of network.forward" if same else
+                           "not the bits of network.forward: "
+                           + ("the row FCs sum without the bias and add "
+                              "it after the all_reduce" if mode == "row"
+                              else "the same ops, other bits")))
+                    if not same and mode != "row":
+                        raise AssertionError(f"{label}: at world size 1 "
+                                             f"the same ops gave other bits")
+                    agree(f"{label} vs network.forward", want, got, 1e-2,
+                          0.99)
+                    fns[mode] = run
+                ms = alternate_ms(fns, steps=10 if b > 1 else 50)
+                log(f"parallel overhead ws=1 B={b} (in turns, median of 3 "
+                    f"loops): " + " ".join(
+                        f"{k} ms/step={v:.4f} ({v / ms['plain'] - 1:+.1%})"
+                        for k, v in ms.items()) + f" card={gpu_name}")
+
+            # the mesh engine at world size 1: rank 0 alone, no follower
+            cfg = EngineConfig(max_batch=PARALLEL_REQUESTS, max_wait_ms=20.0)
+            eng = BatchingEngine(spec, params, mesh=mesh, config=cfg,
+                                 conv_impl="memory", fc_impl="memory",
+                                 device=dev)
+            eng.warmup()
+            images = synth.random_input(spec, PARALLEL_REQUESTS, seed=2)
+            eng.start()
+            cuda_ops.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                futures = [eng.submit(img) for img in images]
+                got = np.stack([f.result(timeout=120) for f in futures])
+            finally:
+                eng.stop()
+            ms = (time.perf_counter() - t0) * 1e3
+            run_counts = cuda_ops.launches()
+            batches = eng.stats["batches"]
+            for name, n in run_counts.items():
+                want_n = {"pq_decode": 1, "pq_fc_fused": 3}.get(name, 0)
+                if n != want_n * batches:
+                    raise AssertionError(
+                        f"parallel engine ws=1: {name} launched {n} times "
+                        f"for {batches} batches")
+            add_counts(counts.setdefault("parallel engine ws=1", {}),
+                       run_counts)
+            prepared, conv_impls, fc_impls = prepare.prepare_params(
+                spec, params, batch_hint=PARALLEL_REQUESTS,
+                conv_impl="memory", fc_impl="memory", dtype=torch.bfloat16,
+                device=dev)
+            ref = network.forward(prepared, images, spec=spec,
+                                  conv_impls=conv_impls, fc_impls=fc_impls,
+                                  compute_dtype=torch.bfloat16,
+                                  device=dev).float().cpu()
+            log(f"parallel engine ws=1: {PARALLEL_REQUESTS} requests in "
+                f"{batches} batches, {ms:.2f} ms, launches "
+                f"{ {k: v for k, v in run_counts.items() if v} }")
+            agree("parallel engine ws=1 vs network.forward", ref,
+                  torch.from_numpy(got), 1e-2, 0.99)
+        finally:
+            dist.destroy_process_group()
+
+
+def parallel_two_ranks(root: str, counts: dict) -> None:
+    """Phase 14 (b): PARALLEL_WORLD ranks sharing the card over gloo run
+    the dry run (qcnn_tpu_torch/parallel/dryrun.py); each rank's cases and
+    launch counts are logged, and each case's kernels must have launched
+    on every rank."""
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "qcnn_tpu_torch.parallel.dryrun", "--world",
+         str(PARALLEL_WORLD), "--device", PARALLEL_DRYRUN_DEVICE],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=PARALLEL_TIMEOUT_S)
+    cases = []
+    for line in proc.stdout.splitlines():
+        log(f"parallel (b) {line}")
+        body = line.split("] ", 1)[-1]
+        if body.startswith("dryrun {"):
+            cases.append(json.loads(body[len("dryrun "):]))
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"parallel (b): the dry run exited "
+                             f"{proc.returncode}")
+    log(f"parallel (b): {PARALLEL_WORLD} ranks on one card over gloo "
+        f"(all_gather, send and recv of CUDA tensors staged through the "
+        f"host; the times are correctness runs, not scaling), "
+        f"{len(cases)} case records, {time.perf_counter() - t0:.2f} s")
+    seen = {}
+    for case in cases:
+        prefix = next(p for p in sorted(PARALLEL_CASE_KERNELS, key=len,
+                                        reverse=True)
+                      if case["case"].startswith(p))
+        seen.setdefault(prefix, set()).add(case["rank"])
+        for name in PARALLEL_CASE_KERNELS[prefix]:
+            if case["launches"].get(name, 0) == 0:
+                raise AssertionError(
+                    f"parallel (b) rank {case['rank']} {case['case']}: "
+                    f"{name} did not launch on the shard")
+        add_counts(counts.setdefault(f"parallel 2 ranks {prefix}", {}),
+                   case["launches"])
+    for prefix in PARALLEL_CASE_KERNELS:
+        if seen.get(prefix) != set(range(PARALLEL_WORLD)):
+            raise AssertionError(f"parallel (b): case {prefix!r} ran on "
+                                 f"ranks {sorted(seen.get(prefix, ()))}")
+
+
+def phase_parallel(spec, params, dev, gpu_name: str) -> dict:
+    """Phase 14: the parallel layer. (a) world size 1 on NCCL in this
+    process: AlexNet-PQ memory (bf16) through make_sharded_forward in the
+    three FC modes at B=256 and B=1 against network.forward (the same ops
+    at world size 1: the same bits; the row layout adds the bias after its
+    reduction), their ms/step in turns with the plain forward (the
+    wrapper's overhead), and the mesh engine answering PARALLEL_REQUESTS.
+    (b) PARALLEL_WORLD ranks sharing the card over gloo run the dry run.
+    Returns the launch counts of each path."""
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    parallel_world_one(spec, params, dev, gpu_name, counts)
+    log(f"parallel (a) seconds={time.perf_counter() - t_phase:.2f}")
+    parallel_two_ranks(os.path.dirname(os.path.abspath(__file__)), counts)
+    log(f"parallel phase seconds={time.perf_counter() - t_phase:.2f}")
+    return counts
+
+
 def quantize_repro(dev, smi: str) -> None:
     """--quantize-repro: quantize AlexNet (plain, and error-corrected over
     32 random calibration inputs) and ResNet-50 (plain) twice each with
@@ -3794,6 +4062,9 @@ def main() -> int:
     only.add_argument("--only-profile", action="store_true",
                       help="stop after the build and phase 13 (the profile "
                            "command)")
+    only.add_argument("--only-parallel", action="store_true",
+                      help="stop after the build and phase 14 (the "
+                           "parallel layer)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
@@ -3869,6 +4140,12 @@ def main() -> int:
         log(f"script seconds={time.perf_counter() - t_script:.2f}")
         log(json.dumps({"partial": "profile only", "launches": counts}))
         return 0
+    if args.only_parallel:
+        del flush
+        counts = phase_parallel(spec, params, dev, gpu_name)
+        log(f"script seconds={time.perf_counter() - t_script:.2f}")
+        log(json.dumps({"partial": "parallel only", "launches": counts}))
+        return 0
     check_f32_conv(dev)
     t0 = time.perf_counter()
     vparams = {model: synth.random_vit_pq_params(vit.VITS[model](), seed=0)
@@ -3938,12 +4215,22 @@ def main() -> int:
     counts |= quant_counts
     # phase 13: the profile command
     counts |= phase_profile(dev, smi, family_pq)
+    # phase 14: the parallel layer
+    counts |= phase_parallel(spec, params, dev, gpu_name)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
     owners_of = {}
     for label, _, owned in PROFILE_RUNS:
         for name in owned:  # what phase 13 held each run to
             owners_of.setdefault(name, []).append(f"profile {label}")
+    for prefix, owned in PARALLEL_CASE_KERNELS.items():
+        for name in owned:  # what phase 14 (b) held each case to
+            owners_of.setdefault(name, []).append(
+                f"parallel 2 ranks {prefix}")
+    for name in ("pq_decode", "pq_fc_fused", "pq_lut_gather"):
+        owners_of[name].append("parallel ws=1")  # phase 14 (a)
+    for name in ("pq_decode", "pq_fc_fused"):
+        owners_of[name].append("parallel engine ws=1")
     owners = {  # the paths that own each kernel
         "pq_decode": ("alexnet memory", "resnet50 memory",
                       "io alexnet classify", "io resnet50 family",

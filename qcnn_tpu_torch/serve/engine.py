@@ -10,8 +10,14 @@ daemon that coalesces concurrent requests into device-sized batches:
 - batches are padded UP to a fixed bucket ladder (1, 8, 32, ..., max_batch)
   so only len(buckets) batch shapes ever run: ``warmup()`` builds the kernels
   and fills the kernel plan caches for each before the first request;
-- one engine runs on one card. Batches sharded over several devices are
-  the parallel layer's (ROADMAP.md A12, not ported).
+- with a mesh (``mesh=``, ``qcnn_tpu_torch.parallel``) one engine spans
+  the ranks of a process group, one device each. The ranks run SPMD: every
+  rank must enter the same collectives in the same order. So rank 0 runs
+  the queue, the dispatcher and the compute thread, and broadcasts each
+  assembled batch (its size first, then the tensor) before the sharded
+  forward; every other rank calls :meth:`BatchingEngine.follow`, which
+  receives each batch and runs the same forward. Warm-up goes through the
+  same broadcast, and ``stop()`` on rank 0 releases the followers.
 
 What the CUDA design changes against the JAX package's:
 
@@ -54,9 +60,6 @@ import numpy as np
 import torch
 
 from qcnn_tpu_torch._device import default_dtype, resolve_device
-
-_MESH_NOT_PORTED = ("a mesh-sharded engine needs the parallel layer, which "
-                    "is not ported yet: ROADMAP.md A12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,9 +146,10 @@ class BatchingEngine:
         host-to-device bytes); default float32.
         device: None means "cuda" (raises without a card); pass "cpu" to
         serve with the plain versions.
+        mesh: a (data, model) mesh (``parallel.make_mesh``): batches shard
+        over ``data`` (``parallel.sharding.make_dp_forward``), ``params``
+        whole on every rank; see the module docstring for the ranks' roles.
         """
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.spec = _ShapeOnlySpec(*input_shape)
@@ -156,7 +160,12 @@ class BatchingEngine:
                               else upload_dtype)
         self.params = params
         self._fwd = forward_fn
+        if mesh is not None:
+            from qcnn_tpu_torch.parallel.sharding import make_dp_forward
+
+            self._fwd = make_dp_forward(forward_fn, mesh)
         self._init_runtime()
+        self._init_mesh(mesh)
         return self
 
     def _init_runtime(self) -> None:
@@ -228,12 +237,15 @@ class BatchingEngine:
           selects int8 weights with bf16 activations.
         device: None means "cuda" (raises without a card); pass "cpu" to
           serve with the plain versions.
+        mesh: a (data, model) mesh (``parallel.make_mesh``): the prepared
+          params are cut by ``parallel.shard_params`` (column layout) and
+          the forward is ``parallel.make_sharded_forward`` with the
+          strategies resolved for ``config.max_batch``; see the module
+          docstring for the ranks' roles.
         """
         from qcnn_tpu_torch.models.network import make_forward_fn
         from qcnn_tpu_torch.models.prepare import act_dtype_for, prepare_params
 
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
         self.device = resolve_device(device)
         self.spec = spec
         config = config if config is not None else EngineConfig()
@@ -248,15 +260,98 @@ class BatchingEngine:
             conv_impl=conv_impl, fc_impl=fc_impl,
             batch_hint=config.max_batch, device=self.device,
         )
-        self._fwd = make_forward_fn(
-            spec,
-            conv_impls=conv_impls,
-            fc_impls=fc_impls,
-            compute_dtype=act_dtype,
-            with_softmax=config.with_softmax,
-            device=self.device,
-        )
+        if mesh is not None:
+            from qcnn_tpu_torch.parallel.sharding import (
+                make_sharded_forward,
+                shard_params,
+            )
+
+            self.params = shard_params(spec, self.params, mesh,
+                                       device=self.device)
+            # the RESOLVED strategies and activation dtype: re-resolving
+            # 'auto' here would lose the memory-mode routes of max_batch
+            self._fwd = make_sharded_forward(
+                spec, mesh, with_softmax=config.with_softmax,
+                conv_impls=conv_impls, fc_impls=fc_impls,
+                compute_dtype=act_dtype, device=self.device)
+        else:
+            self._fwd = make_forward_fn(
+                spec,
+                conv_impls=conv_impls,
+                fc_impls=fc_impls,
+                compute_dtype=act_dtype,
+                with_softmax=config.with_softmax,
+                device=self.device,
+            )
         self._init_runtime()
+        self._init_mesh(mesh)
+
+    # -- ranks of a mesh engine -------------------------------------------
+
+    def _init_mesh(self, mesh) -> None:
+        """Without a mesh, one process serves. With one, rank 0 leads:
+        every forward it runs is preceded by a broadcast of the batch, which
+        the followers run too (:meth:`follow`)."""
+        self._mesh = mesh
+        self._rank = 0
+        self._released = False
+        if mesh is None:
+            return
+        import torch.distributed as dist
+
+        self._rank = dist.get_rank()
+        # the batch size travels as a tensor: on the device under NCCL,
+        # on the host under gloo
+        self._header_device = (self.device if dist.get_backend() == "nccl"
+                               else torch.device("cpu"))
+        self._sharded_fwd = self._fwd
+        self._fwd = self._lead
+
+    def _broadcast_header(self, rows: int) -> int:
+        import torch.distributed as dist
+
+        header = torch.tensor([rows], dtype=torch.int64,
+                              device=self._header_device)
+        dist.broadcast(header, src=0)
+        return int(header.item())
+
+    def _lead(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's forward: the batch's size, the batch, then the sharded
+        forward that every rank runs."""
+        import torch.distributed as dist
+
+        self._broadcast_header(x.shape[0])
+        dist.broadcast(x.contiguous(), src=0)
+        return self._sharded_fwd(params, x)
+
+    def follow(self) -> int:
+        """On a rank other than 0 of a mesh engine: receive each batch that
+        rank 0 broadcasts and run the same forward, until rank 0's
+        ``stop()``. Returns the number of forwards run."""
+        if self._mesh is None or self._rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a mesh engine")
+        import torch.distributed as dist
+
+        shape = (self.spec.in_height, self.spec.in_width,
+                 self.spec.in_channels)
+        done = 0
+        with self._compute_context():
+            while True:
+                rows = self._broadcast_header(0)
+                if rows == 0:
+                    return done
+                x = torch.empty((rows, *shape), dtype=self._upload_dtype,
+                                device=self.device)
+                dist.broadcast(x, src=0)
+                self._sharded_fwd(self.params, x)
+                done += 1
+
+    def _release_followers(self) -> None:
+        """Rank 0: a batch size of 0 ends every follower's loop."""
+        if self._mesh is not None and self._rank == 0 and not self._released:
+            self._released = True
+            self._broadcast_header(0)
 
     def latency_percentiles(self) -> dict:
         """Per-batch COMPUTE-stage latency (forward + result resolution).
@@ -275,6 +370,9 @@ class BatchingEngine:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "BatchingEngine":
+        if self._rank != 0:
+            raise RuntimeError(f"rank {self._rank} of a mesh engine follows "
+                               f"rank 0: call follow()")
         self._thread = threading.Thread(
             target=self._dispatch_loop, name="qcnn-dispatch", daemon=True
         )
@@ -323,6 +421,9 @@ class BatchingEngine:
         # (the dispatcher also checks compute-thread liveness before
         # putting; together these close the stop() race)
         self._fail_compute_queue()
+        if self._compute_thread is None or not self._compute_thread.is_alive():
+            # no forward can be in flight: the followers' collectives end
+            self._release_followers()
         if self._asm_pool is not None:
             self._asm_pool.shutdown(wait=False)
             self._asm_pool = None

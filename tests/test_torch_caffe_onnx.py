@@ -27,6 +27,7 @@ from qcnn_tpu_torch.preproc import TorchPreprocessor
 from tests.test_caffe_import import _tiny_net, _tiny_spec
 from tests.test_onnx_import import _mk_onnx
 from tests.test_torch_import import _mini_vgg_spec, _mk_linear_state_dict
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def tspec_of(jspec):

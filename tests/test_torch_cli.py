@@ -41,6 +41,7 @@ from qcnn_tpu_torch.models import resnet as tresnet
 from qcnn_tpu_torch.models import synth as tsynth
 from qcnn_tpu_torch.preproc import TorchPreprocessor, encode_bmp24
 from qcnn_tpu_torch.serve.engine import EngineConfig
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = [(256, 256), (181, 257), (333, 250)]

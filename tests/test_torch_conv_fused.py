@@ -21,6 +21,7 @@ from qcnn_tpu_torch.models import resnet as tresnet
 from qcnn_tpu_torch.models import synth
 from qcnn_tpu_torch.ops import conv as tconv
 from qcnn_tpu_torch.ops.cuda import pq_conv_fused, pq_decode
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 # the module (the package re-exports its entry point under the same name)
 jfused = importlib.import_module("qcnn_tpu.ops.pallas.pq_conv_fused")

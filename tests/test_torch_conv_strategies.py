@@ -29,6 +29,7 @@ from qcnn_tpu_torch.core import (
 from qcnn_tpu_torch.models import network as tnet
 from qcnn_tpu_torch.ops import conv as tconv
 from qcnn_tpu_torch.ops import lut as tlut
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def T(a):

@@ -13,6 +13,7 @@ from qcnn_tpu.formats import reference_codec as jcodec
 from qcnn_tpu_torch import native_build
 from qcnn_tpu_torch.formats import native as tnative
 from qcnn_tpu_torch.formats import reference_codec as tcodec
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def _counts(bits):

@@ -30,6 +30,7 @@ from qcnn_tpu.ops import conv as jconv
 from qcnn_tpu.ops.pallas import pq_fc_fused as j_fused
 from qcnn_tpu_torch.ops import lut
 from qcnn_tpu_torch.ops.cuda import _build, _plan, pq_conv_fused, pq_fc_fused
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(

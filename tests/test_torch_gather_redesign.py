@@ -38,6 +38,7 @@ from qcnn_tpu_torch.ops import conv as conv_ops
 from qcnn_tpu_torch.ops import lut as lut_ops
 from qcnn_tpu_torch.ops.cuda import _plan, pq_decode, pq_fc
 from qcnn_tpu_torch.ops.misc import relu
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 jpq_fc = importlib.import_module("qcnn_tpu.ops.pallas.pq_fc")
 

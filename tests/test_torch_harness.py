@@ -40,6 +40,7 @@ from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models.prepare import prepare_params as tprepare
 from qcnn_tpu_torch.preproc import encode_bmp24
 from qcnn_tpu_torch.utils.timing import StopWatch, TimerSet
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 SIZES = [(256, 256), (181, 257), (333, 250), (200, 301)]
 

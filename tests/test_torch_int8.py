@@ -60,6 +60,7 @@ from qcnn_tpu_torch.models.prepare import prepare_params as tprepare
 from qcnn_tpu_torch.ops import conv as tconv
 from qcnn_tpu_torch.ops import fc as tfc
 from qcnn_tpu_torch.ops import misc as tmisc
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def T(a):

@@ -13,6 +13,7 @@ import time
 import pytest
 
 from qcnn_tpu_torch.ops.cuda import _build
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 @pytest.fixture

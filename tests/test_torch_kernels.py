@@ -31,6 +31,7 @@ from qcnn_tpu_torch.ops.cuda import (
     pq_fc_fused,
     pq_lut_gather,
 )
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def T(a):

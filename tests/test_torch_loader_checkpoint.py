@@ -24,6 +24,7 @@ from qcnn_tpu_torch.models import synth as tsynth
 from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models import zoo as tzoo
 from qcnn_tpu_torch.preproc import pipeline as tpipe
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 PREFIX = "bvlc_alexnet_aCaF"
 

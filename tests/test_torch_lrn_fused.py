@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from qcnn_tpu_torch.ops.cuda import lrn_fused
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 jlrn = importlib.import_module("qcnn_tpu.ops.pallas.lrn_fused")
 

@@ -22,6 +22,7 @@ import torch
 
 from qcnn_tpu_torch.ops import lut as lut_ops
 from qcnn_tpu_torch.ops.cuda import _plan, lrn_fused, pq_lut_gather
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 jlut = importlib.import_module("qcnn_tpu.ops.pallas.pq_lut_gather")
 jlrn = importlib.import_module("qcnn_tpu.ops.pallas.lrn_fused")

@@ -18,6 +18,7 @@ from qcnn_tpu_torch.models import network as tnet
 from qcnn_tpu_torch.models import zoo as tzoo
 from qcnn_tpu_torch.models.interop import params_from_jax
 from qcnn_tpu_torch.models.prepare import prepare_params as tprepare
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def _tiny(core):

@@ -17,6 +17,7 @@ from qcnn_tpu_torch.ops import conv as tconv
 from qcnn_tpu_torch.ops import fc as tfc
 from qcnn_tpu_torch.ops import lut as tlut
 from qcnn_tpu_torch.ops import misc as tmisc
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def T(a):

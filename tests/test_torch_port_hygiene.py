@@ -31,6 +31,7 @@ from qcnn_tpu_torch.models.interop import (
     family_params_from_jax,
     params_from_jax,
 )
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "qcnn_tpu", "ml_dtypes")
@@ -59,11 +60,16 @@ def test_port_modules_import_no_jax_in_a_fresh_interpreter():
                  "serve.engine", "serve.http", "serve.router", "cli",
                  "__main__", "quantizer", "quantizer.kmeans",
                  "quantizer.pq", "quantizer.opq", "quantizer.sequential",
-                 "formats.caffe_pb", "formats.onnx_import"):
+                 "formats.caffe_pb", "formats.onnx_import", "parallel",
+                 "parallel.mesh", "parallel.sharding",
+                 "parallel.shardmap_ops", "parallel.pipeline",
+                 "parallel.dryrun"):
         assert f"qcnn_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        # the ranks that the parallel tests spawn import the port only
+        "importlib.import_module('tests.torch_parallel_worker')\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -87,10 +93,16 @@ def _imports_of(path: str) -> list[str]:
     return names
 
 
+# the files beside the package that import it on a machine without JAX:
+# the smoke, and the ranks that the parallel tests spawn
+STANDALONE = ("chip_smoke.py", os.path.join("tests",
+                                            "torch_parallel_worker.py"))
+
+
 def test_no_forbidden_import_anywhere_in_the_sources():
     """Also catches imports inside functions, which importing alone would
     not run."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in STANDALONE]
     for root, _, files in os.walk(os.path.dirname(qcnn_tpu_torch.__file__)):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:
@@ -109,7 +121,7 @@ def test_no_string_names_a_jax_package_module():
     """A module path in a string (``importlib`` tables such as the
     checkpoint store's family specs) is an import the AST check above does
     not see; docstrings are held to the same rule."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in STANDALONE]
     for root, _, files in os.walk(os.path.dirname(qcnn_tpu_torch.__file__)):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     pattern = re.compile(r"\b(qcnn_tpu|jax|ml_dtypes)\.[a-z_]")

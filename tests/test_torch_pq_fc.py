@@ -27,6 +27,7 @@ from qcnn_tpu_torch.models.prepare import prepare_params as tprepare
 from qcnn_tpu_torch.ops import fc as tfc
 from qcnn_tpu_torch.ops import lut as lut_ops
 from qcnn_tpu_torch.ops.cuda import pq_fc
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 jpq_fc = importlib.import_module("qcnn_tpu.ops.pallas.pq_fc")
 

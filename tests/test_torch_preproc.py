@@ -15,6 +15,7 @@ from qcnn_tpu.preproc import pipeline as jpipe
 from qcnn_tpu_torch.preproc import bmp as tbmp
 from qcnn_tpu_torch.preproc import native as tnative
 from qcnn_tpu_torch.preproc import pipeline as tpipe
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 # (height, width): square, below the 256-px resize, non-square, and widths
 # that are not multiples of 4 (padded BMP rows)

@@ -39,6 +39,7 @@ from qcnn_tpu_torch.models.interop import (
     params_from_jax,
 )
 from qcnn_tpu_torch.models.prepare import prepare_params as tprepare
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 K = dict(k1=1, k2=2)
 DTYPES = {"float32": (jnp.float32, torch.float32),

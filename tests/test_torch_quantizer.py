@@ -33,6 +33,7 @@ from qcnn_tpu_torch.ops import fc as tfc
 from qcnn_tpu_torch.quantizer import kmeans as tkmeans
 from qcnn_tpu_torch.quantizer import opq as topq
 from qcnn_tpu_torch.quantizer import pq as tpq
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def T(a):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from qcnn_tpu_torch.quantizer import kmeans, pq
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -3,9 +3,9 @@
 Every public name that an ``__init__.py`` of ``qcnn_tpu/`` binds (imports,
 definitions, assignments; ``__version__``) is an attribute of the port's
 package at the same place. The JAX side is read with ``ast``, so no jax is
-imported. Left out: ``parallel`` (ROADMAP.md A12 ports it) and
-``ops/pallas``, whose Pallas wrappers have CUDA counterparts under another
-name in ``ops/cuda``; private names (``_SO``, ``_loader``) need none.
+imported. Left out: ``ops/pallas``, whose Pallas wrappers have CUDA
+counterparts under another name in ``ops/cuda``; private names (``_SO``,
+``_loader``) need none.
 """
 
 import ast
@@ -13,10 +13,11 @@ import importlib
 import pathlib
 
 import pytest
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 JAX_ROOT = REPO / "qcnn_tpu"
-NOT_PORTED_HERE = {("parallel",), ("ops", "pallas")}
+NOT_PORTED_HERE = {("ops", "pallas")}
 
 
 def _packages() -> list[tuple[str, ...]]:
@@ -43,7 +44,8 @@ def _bound_names(path: pathlib.Path) -> set[str]:
 def test_every_jax_package_init_is_read():
     parts = _packages()
     assert () in parts and ("models",) in parts and ("utils",) in parts
-    assert len(parts) == 12
+    assert ("parallel",) in parts
+    assert len(parts) == 13
 
 
 @pytest.mark.parametrize("parts", _packages(), ids=lambda p: ".".join(p)

@@ -28,6 +28,7 @@ from qcnn_tpu_torch.models import common as tcommon
 from qcnn_tpu_torch.models import resnet as tresnet
 from qcnn_tpu_torch.models import synth
 from qcnn_tpu_torch.models.interop import family_params_from_jax
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 SMALL = {
     # stage 1's stride-1 3x3 convs take 256 channels: memory mode fuses them

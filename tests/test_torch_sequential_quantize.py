@@ -37,6 +37,7 @@ from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models import zoo as tzoo
 from qcnn_tpu_torch.quantizer import sequential as tseq
 from qcnn_tpu_torch.quantizer.sequential import quantize_network
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 
 def gen(seed=0):

@@ -52,6 +52,7 @@ from qcnn_tpu_torch.models.interop import (
 from qcnn_tpu_torch.serve import engine as tengine
 from qcnn_tpu_torch.serve.http import serve as tserve
 from qcnn_tpu_torch.serve.router import serve_router
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 SHAPE = (11, 11, 4)
 NAMES = [f"class {i}" for i in range(10)]
@@ -212,14 +213,6 @@ def test_warmup_runs_every_bucket(params):
     times = teng.warmup()
     assert sorted(times) == [1, 8] and all(t > 0 for t in times.values())
     teng.stop()
-
-
-def test_mesh_raises_naming_the_parallel_layer(params):
-    with pytest.raises(NotImplementedError, match="A12"):
-        tengine.BatchingEngine(TSPEC, params[1], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tengine.BatchingEngine.from_forward(lambda p, x: x, None, SHAPE,
-                                            mesh=object(), device="cpu")
 
 
 def test_no_cuda_raises_unless_cpu_is_asked_for(params, monkeypatch):

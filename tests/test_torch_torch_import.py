@@ -25,6 +25,7 @@ from qcnn_tpu.models import vit as jvit
 from qcnn_tpu_torch.models import resnet as tresnet
 from qcnn_tpu_torch.models import torch_import as timport
 from qcnn_tpu_torch.models import vit as tvit
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 SMALL_RESNET = dict(name="small", stage_depths=(1, 2),
                     stage_channels=(64, 128), num_classes=10, in_size=32,

@@ -41,6 +41,7 @@ from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models.interop import family_params_from_jax
 from qcnn_tpu_torch.ops import fc as fc_ops
 from qcnn_tpu_torch.ops.cuda import pq_decode
+from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2e-2, 1e-2),
        "int8": (1e-1, 2e-2)}
