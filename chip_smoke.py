@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only-quantize  # phases 1-2 and 12 (quantizer)
     python3 chip_smoke.py --only-profile   # phases 1-2 and 13 (profile)
     python3 chip_smoke.py --only-parallel  # phases 1-2 and 14 (parallel)
+    python3 chip_smoke.py --only-a13       # phases 1-2 and 15 (A13.2)
     python3 chip_smoke.py --gather-times [--root CHECKOUT]
         # phases 1-2, then only the times of pq_fc, pq_decode, pq_lut_gather
         # and lrn_fused, of this checkout's package or another's (say the
@@ -254,6 +255,30 @@ Phases, each fatal on failure (any exception exits non-zero):
    case's time, error and the launches of its sharded call, which must
    include the case's kernels (PARALLEL_CASE_KERNELS) on every rank.
 
+15. the last modules of the JAX package (ROADMAP A13.2), in a temporary
+   directory. (a) The dcp array store: AlexNet-PQ (synthetic, seed 0) and
+   the ResNet-50 family checkpoint saved with store='npz' and with
+   store='dcp' (params_dcp/, torch.distributed.checkpoint): bytes, save and
+   load seconds of each, the same arrays, dtypes and spec from both; then
+   Classifier.from_checkpoint of each copy in memory mode at batch_hint=64
+   (64 images: pq_decode 1 + pq_fc_fused 3 a call) and batch_hint=1
+   (pq_decode 1 + pq_lut_gather 3), and FamilyClassifier.from_checkpoint
+   (memory=True, 16 images: pq_conv_fused 7 + pq_decode 17): the dcp copy
+   counted, and the same bits as the npz copy. (b) The lane pad
+   (models/lanepad.py): AlexNet decoded at load, bf16 at B=256 and B=1 and
+   int8 (calibrated as phase 8 is) at B=256, each unpadded and padded
+   through phase 5's loops (no kernel of the package may launch) and
+   profile, the ms/step of both in turns, and the conv1 .. conv2 rows of
+   profile_layers (conv1 at 96 and 128 channels, LRN1 in the band form
+   that channel_map forces). (c) The cross-engine harness
+   (eval/reference_engine.py): synthesize_live_pq_params for AlexNet
+   (seed 7, one calibration BMP) on the card and on the CPU;
+   prepare_synth_data_dir writes the reference layout beside a written
+   mean image and class names; Classifier.from_reference (memory) on 16
+   BMPs (pq_decode 1 + pq_fc_fused 3 a call) against network.forward
+   'auto'; the reference binary where a reference checkout and g++ exist,
+   else one 'a13 reference absent' line.
+
 Limits (the script fails past them):
 - kernels against their plain versions: pq_fc_fused and pq_conv_fused
   (wgmma and general kernels) 1e-4 and pq_fc 1e-5 of the largest |output|
@@ -312,6 +337,14 @@ Limits (the script fails past them):
   the Classifier and against the decode-at-load engine), ResNet-50 5e-3
   and 99 %; launch counts exact; the status counts as above.
 
+- phase 15: the dcp copies' arrays equal to the npz copies' and their
+  probabilities the same bits; padded against unpadded at phase 5's
+  limits in bf16, phase 8's int8 limits in int8; the live codebooks on the
+  card within 1e-4 relative of the CPU's, the assignments equal; the
+  reference-layout classifier against 'auto' at phase 5's limits; the
+  reference engine (where present) against the port in f32 at
+  tests/test_reference_parity.py's atol 1e-4, rtol 1e-2 and equal top-1.
+
 - phase 13: each profile table's sum of rows within 0.5-2.0 of its step's
   device-busy ms (the rows are timed one by one with the L2 flushed; the
   step runs warm); launch counts as listed there; phase 12's repro checks
@@ -321,8 +354,8 @@ The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
 --only-io, --only-vit, --only-serve, --only-quantize, --only-profile,
---only-parallel, --gather-times or --quantize-repro it stops early and
-prints neither.
+--only-parallel, --only-a13, --gather-times or --quantize-repro it stops
+early and prints neither.
 """
 
 from __future__ import annotations
@@ -3712,6 +3745,7 @@ PARALLEL_TIMEOUT_S = 420  # the dry run's launcher stops its ranks at 390
 # the start of the case's name (qcnn_tpu_torch/parallel/dryrun.py)
 PARALLEL_CASE_KERNELS = {
     "tiny": (),
+    "dcp store": (),
     "fc6 row lutgather": ("pq_lut_gather",),
     "fc6 column lutgather": ("pq_lut_gather",),
     "fc6 row fgather": ("pq_fc_fused",),
@@ -3936,6 +3970,350 @@ def phase_parallel(spec, params, dev, gpu_name: str) -> dict:
     return counts
 
 
+# phase 15: the last modules of the JAX package (ROADMAP A13.2)
+A13_BMPS = 16  # BMPs of the reference-layout classifier
+A13_STORE_BATCH = 64  # images of the checkpoint classifiers (AlexNet)
+A13_FAMILY_BATCH = 16  # images of the ResNet-50 family classifier
+A13_LANEPAD_RUNS = (("bf16", 256), ("bf16", 1), ("int8", 256))
+# the reference engine against the port in f32:
+# tests/test_reference_parity.py's synthetic runs
+A13_PARITY_TOL = {"atol": 1e-4, "rtol": 1e-2}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def same_arrays(label: str, a, b) -> None:
+    """Equal NumPy trees (lists / dicts / arrays): shapes, dtypes, bits."""
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"{label}: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            same_arrays(f"{label}.{k}", a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{label}: {len(a)} != {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            if (x is None) != (y is None):
+                raise AssertionError(f"{label}[{i}]: one side is None")
+            if x is not None:
+                same_arrays(f"{label}[{i}]", x, y)
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                x, y):
+            raise AssertionError(f"{label}: {x.dtype}{x.shape} differs from "
+                                 f"{y.dtype}{y.shape}")
+
+
+def a13_store(spec, params, rparams, d: str, dev) -> dict:
+    """Phase 15 (a): the dcp array store beside npz, for AlexNet-PQ and a
+    ResNet-50 family checkpoint: bytes, save and load seconds, the same
+    arrays and spec, and the classifiers of both copies in memory mode
+    (counted) giving the same bits."""
+    from qcnn_tpu_torch.eval import Classifier, FamilyClassifier
+    from qcnn_tpu_torch.formats import write_bin
+    from qcnn_tpu_torch.formats.checkpoint import (
+        load_checkpoint,
+        load_family_checkpoint,
+        save_checkpoint,
+        save_family_checkpoint,
+        save_preprocessor,
+    )
+    from qcnn_tpu_torch.models import resnet, synth
+    from qcnn_tpu_torch.preproc import Preprocessor, TorchPreprocessor
+
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401
+    log(f"a13 store: import torch.distributed.checkpoint seconds="
+        f"{time.perf_counter() - t0:.3f} (the first dcp save's, apart)")
+    mean_path = os.path.join(d, "mean.bin")
+    write_bin(mean_path, np.random.default_rng(9).uniform(
+        100, 130, (3, 256, 256)).astype(np.float32))
+    cases = (
+        ("alexnet", lambda p, store: save_checkpoint(p, spec, params,
+                                                     store=store),
+         load_checkpoint, Preprocessor.alexnet(mean_path)),
+        ("resnet50", lambda p, store: save_family_checkpoint(
+            p, "resnet", resnet.resnet50(), rparams, store=store),
+         load_family_checkpoint, TorchPreprocessor.imagenet()),
+    )
+    paths, counts = {}, {}
+    for model, save, load, pre in cases:
+        loaded = {}
+        for store in ("npz", "dcp"):
+            path = paths[(model, store)] = os.path.join(d, f"{model}_{store}")
+            t0 = time.perf_counter()
+            save(path, store)
+            save_s = time.perf_counter() - t0
+            save_preprocessor(path, pre)
+            arrays = os.path.join(path, "params.npz" if store == "npz"
+                                  else "params_dcp")
+            t0 = time.perf_counter()
+            loaded[store] = load(path)
+            load_s = time.perf_counter() - t0
+            log(f"a13 store {model} {store}: array bytes="
+                f"{os.path.getsize(arrays) if store == 'npz' else dir_bytes(arrays)}"
+                f" checkpoint bytes={dir_bytes(path)} save_s={save_s:.3f} "
+                f"load_s={load_s:.3f} files="
+                f"{sorted(os.listdir(arrays)) if store == 'dcp' else 'npz'}")
+        npz, dcp = loaded["npz"], loaded["dcp"]
+        if model == "alexnet":
+            if npz[0] != dcp[0] or dcp[0] != spec:
+                raise AssertionError("a13 store: the dcp copy's spec differs")
+            same_arrays("a13 store alexnet dcp vs npz", dcp[1], npz[1])
+            same_arrays("a13 store alexnet dcp vs saved", dcp[1], params)
+        else:
+            if npz[:2] != dcp[:2] or dcp[1] != resnet.resnet50():
+                raise AssertionError("a13 store: the dcp family spec differs")
+            same_arrays("a13 store resnet50 dcp vs npz", dcp[2], npz[2])
+            same_arrays("a13 store resnet50 dcp vs saved", dcp[2], rparams)
+        log(f"a13 store {model}: dcp and npz load the same arrays, dtypes "
+            f"and spec")
+
+    # the classifiers of both copies, memory mode: counted, the same bits
+    x = synth.random_input(spec, A13_STORE_BATCH, seed=1)
+    for b, per_call in ((A13_STORE_BATCH, {"pq_decode": 1, "pq_fc_fused": 3}),
+                        (1, {"pq_decode": 1, "pq_lut_gather": 3})):
+        clfs = {store: Classifier.from_checkpoint(
+            paths[("alexnet", store)], conv_impl="memory", fc_impl="memory",
+            batch_hint=b, device=dev) for store in ("npz", "dcp")}
+        counts[f"a13 alexnet dcp B={b}"] = io_drive(
+            f"a13 alexnet dcp checkpoint memory batch_hint={b} B={b}",
+            clfs["dcp"], lambda: clfs["dcp"]._probs(x[:b]), 3, per_call, b)
+        got, want = clfs["dcp"]._probs(x[:b]), clfs["npz"]._probs(x[:b])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"a13 alexnet B={b}: the dcp copy's "
+                                 "probabilities differ from the npz copy's")
+        log(f"a13 alexnet dcp vs npz B={b}: the same bits "
+            f"(top-1 of row 0 {int(got[0].argmax())})")
+        del clfs
+    gen = torch.Generator().manual_seed(2)
+    xr = torch.randn((A13_FAMILY_BATCH, 224, 224, 3), generator=gen).numpy()
+    fams = {store: FamilyClassifier.from_checkpoint(
+        paths[("resnet50", store)], memory=True, device=dev)
+        for store in ("npz", "dcp")}
+    counts["a13 resnet50 dcp"] = io_drive(
+        f"a13 resnet50 dcp family checkpoint memory B={A13_FAMILY_BATCH}",
+        fams["dcp"], lambda: fams["dcp"]._probs(xr), 3,
+        {"pq_conv_fused": 7, "pq_decode": 17}, A13_FAMILY_BATCH)
+    if not np.array_equal(fams["dcp"]._probs(xr), fams["npz"]._probs(xr)):
+        raise AssertionError("a13 resnet50: the dcp copy's probabilities "
+                             "differ from the npz copy's")
+    log("a13 resnet50 dcp vs npz: the same bits")
+    return counts
+
+
+def a13_lanepad(spec, params, dev, gpu_name: str, smi: str) -> None:
+    """Phase 15 (b): AlexNet decoded at load, unpadded and lane-padded
+    (models/lanepad.py), through phase 5's loops and profile; no port kernel
+    may launch. Logs ms/step in turns, device-busy ms/step and the profile
+    rows of the padded block (conv1 .. conv2) of both."""
+    import dataclasses
+
+    from qcnn_tpu_torch.core import ConvSpec
+    from qcnn_tpu_torch.eval.profiler import profile_layers
+    from qcnn_tpu_torch.models import calibrate, network, prepare, synth
+    from qcnn_tpu_torch.models.lanepad import lane_pad
+
+    x_all = torch.from_numpy(synth.random_input(spec, 256, seed=1)).to(dev)
+    pb, cb, fb = prepare.prepare_params(spec, params, batch_hint=256,
+                                        dtype=torch.bfloat16, device=dev)
+    scales = calibrate.calibrate_act_scales(
+        spec, pb, synth.random_input(spec, 32, seed=3), conv_impls=cb,
+        fc_impls=fb, device=dev)
+    del pb
+    failed = []
+    for dtype, b in A13_LANEPAD_RUNS:
+        t0 = time.perf_counter()
+        prepared, conv_impls, fc_impls = prepare.prepare_params(
+            spec, params, batch_hint=b,
+            dtype=torch.int8 if dtype == "int8" else torch.bfloat16,
+            act_scales=scales if dtype == "int8" else None, device=dev)
+        pspec, padded = lane_pad(spec, prepared)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        if pspec is spec:
+            raise AssertionError(f"a13 lanepad {dtype}: nothing was padded")
+        x = x_all[:b]
+        fwds, probs, busy, rows = {}, {}, {}, {}
+        for name, (sp, p) in (("unpadded", (spec, prepared)),
+                              ("padded", (pspec, padded))):
+            def fwd(sp=sp, p=p, with_softmax=True):
+                return network.forward(p, x, spec=sp, conv_impls=conv_impls,
+                                       fc_impls=fc_impls,
+                                       compute_dtype=torch.bfloat16,
+                                       with_softmax=with_softmax, device=dev)
+
+            fwds[name] = fwd
+            label = f"a13 lanepad alexnet {dtype} auto {name} B={b}"
+            probs[name], _ = drive(label, fwd, b, spec.num_classes,
+                                   steps=10 if b > 1 else 50, per_fwd={},
+                                   gpu_name=gpu_name,
+                                   resident=tensor_bytes(p), prep_s=prep_s,
+                                   prof_steps=0)
+            busy[name] = profile_steps(fwd, 3, label)
+            # the block the pad changes: conv1 .. conv2
+            conv2 = [i for i, layer in enumerate(sp.layers)
+                     if isinstance(layer, ConvSpec)][1]
+            block = dataclasses.replace(sp, layers=sp.layers[:conv2 + 1])
+            rows[name] = [(r.kind, r.out_shape[-1], r.seconds * 1e3)
+                          for r in profile_layers(
+                              block, p[:conv2 + 1], x, conv_impls=conv_impls,
+                              fc_impls=fc_impls, compute_dtype=torch.bfloat16,
+                              reps=10, verbose=False, device=dev)]
+            for kind, c, ms in rows[name]:
+                log(f"a13 lanepad profile {dtype} B={b} {name}: {kind} "
+                    f"C={c} ms={ms:.4f}")
+        ms = alternate_ms(fwds, steps=10 if b > 1 else 50)
+        lrn = {n: sum(ms_ for k, _, ms_ in r if k == "LRN")
+               for n, r in rows.items()}
+        log(f"a13 lanepad alexnet {dtype} B={b}: ms/step (in turns) "
+            f"unpadded={ms['unpadded']:.4f} padded={ms['padded']:.4f} "
+            f"ratio={ms['padded'] / ms['unpadded']:.3f}; device_busy_ms/step "
+            f"unpadded={busy['unpadded']:.4f} padded={busy['padded']:.4f}; "
+            f"LRN1 ms unpadded={lrn['unpadded']:.4f} "
+            f"padded={lrn['padded']:.4f}; card={smi}")
+        if dtype == "int8":
+            failed.append(agree_logits(
+                f"a13 lanepad alexnet int8 B={b} padded vs unpadded",
+                fwds["unpadded"](with_softmax=False),
+                fwds["padded"](with_softmax=False), *INT8_ALEXNET_LIMITS))
+        else:
+            agree(f"a13 lanepad alexnet bf16 B={b} padded vs unpadded",
+                  probs["unpadded"], probs["padded"], 1e-2, 0.99)
+        del prepared, padded, fwds
+    if any(failed):
+        raise AssertionError("; ".join(f for f in failed if f))
+
+
+def a13_reference(spec, d: str, dev, smi: str) -> dict:
+    """Phase 15 (c): the cross-engine harness (eval/reference_engine.py):
+    synthesize_live_pq_params on the card against the CPU, the reference
+    layout it writes classified in memory mode (counted) against
+    network.forward 'auto', and the reference binary where there is one."""
+    import shutil
+
+    from qcnn_tpu_torch.eval import Classifier
+    from qcnn_tpu_torch.eval import reference_engine as refeng
+    from qcnn_tpu_torch.eval.harness import upload
+    from qcnn_tpu_torch.formats import write_bin
+    from qcnn_tpu_torch.models import network, prepare
+    from qcnn_tpu_torch.preproc import Preprocessor, encode_bmp24
+
+    # a reference-like checkout: the mean image and the class names that
+    # prepare_synth_data_dir links to, and BMPs
+    ref_dir = os.path.join(d, "reference")
+    rng = np.random.default_rng(13)
+    mean_path = os.path.join(ref_dir, "AlexNet", "imagenet_mean.single.bin")
+    os.makedirs(os.path.dirname(mean_path))
+    write_bin(mean_path, rng.uniform(100, 130, (3, 256, 256)).astype(
+        np.float32))
+    os.makedirs(os.path.join(ref_dir, "Cls.Names"))
+    with open(os.path.join(ref_dir, "Cls.Names", "class_names.txt"),
+              "w") as f:
+        f.writelines(f"class {i}\n" for i in range(1000))
+    bmps = []
+    for i in range(A13_BMPS):
+        h, w = IO_BMP_SIZES[i % len(IO_BMP_SIZES)]
+        bmps.append(os.path.join(d, f"img{i:02d}.BMP"))
+        with open(bmps[-1], "wb") as f:
+            f.write(encode_bmp24(rng.integers(0, 256, (h, w, 3),
+                                              dtype=np.uint8)))
+    calib = Preprocessor.alexnet(mean_path).load(bmps[0])
+    t0 = time.perf_counter()
+    live = refeng.synthesize_live_pq_params(spec, calib, seed=7, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    live_cpu = refeng.synthesize_live_pq_params(spec, calib, seed=7,
+                                                device="cpu")
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for i, (p, q) in enumerate(zip(live, live_cpu)):
+        if p is None:
+            continue
+        same_arrays(f"a13 live params layer {i} assignments",
+                    p["assignments"], q["assignments"])
+        worst = max(worst, float(np.abs(p["codebooks"] - q["codebooks"]).max()
+                                 / np.abs(q["codebooks"]).max()))
+    log(f"a13 synthesize_live_pq_params alexnet seed 7: card_s={card_s:.2f} "
+        f"cpu_s={cpu_s:.2f} max rel |dcodebooks| card vs cpu={worst:.3e} "
+        f"(limit 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"a13: live codebooks differ by {worst} "
+                             "relative between the card and the CPU")
+    data_dir = refeng.prepare_synth_data_dir(
+        spec, live, "data_synth", scratch_dir=d, reference_dir=ref_dir)
+    clf = Classifier.from_reference(
+        "alexnet", data_dir, conv_impl="memory", fc_impl="memory",
+        class_names_path=os.path.join(data_dir, "Cls.Names",
+                                      "class_names.txt"), device=dev)
+    if clf.load_result.synthesized_layers:
+        raise AssertionError("a13: the written layout lacks a file")
+    counts = {"a13 reference layout": io_drive(
+        f"a13 reference layout classify_batch memory B={A13_BMPS}", clf,
+        lambda: clf.classify_batch(bmps), 3,
+        {"pq_decode": 1, "pq_fc_fused": 3}, A13_BMPS)}
+    x = clf.pre.load_batch(bmps)
+    got = torch.from_numpy(clf._probs(x))
+    auto, conv_a, fc_a = prepare.prepare_params(
+        spec, clf.raw_params, batch_hint=A13_BMPS, dtype=torch.bfloat16,
+        device=dev)
+    ref = network.forward(auto, upload(x, dev), spec=spec, conv_impls=conv_a,
+                          fc_impls=fc_a, compute_dtype=torch.bfloat16,
+                          device=dev).float().cpu()
+    log(f"a13 reference layout: input-dependent max|p0 - p1|="
+        f"{(ref[0] - ref[1]).abs().max().item():.3e} largest prob="
+        f"{ref.max().item():.4f}")
+    agree(f"a13 reference layout classifier (memory) vs network.forward "
+          f"auto B={A13_BMPS}", ref, got, 1e-2, 0.99)
+    del clf, auto
+    if refeng.available() and shutil.which("g++"):
+        t0 = time.perf_counter()
+        res = refeng.run_reference(bmps, top_k=1000, scratch_dir=d,
+                                   data_dir=data_dir)
+        theirs = np.zeros((A13_BMPS, 1000))
+        for i, r in enumerate(res):
+            theirs[i, r.class_ids] = r.probs
+        f32 = Classifier(spec, live, Preprocessor.alexnet(mean_path),
+                         compute_dtype=torch.float32, device=dev)
+        ours = f32._probs(x).astype(np.float64)
+        log(f"a13 reference engine: {A13_BMPS} BMPs in "
+            f"{time.perf_counter() - t0:.1f} s, max |dprob| against the "
+            f"port in f32 {np.abs(theirs - ours).max():.3e}")
+        np.testing.assert_allclose(ours, theirs, **A13_PARITY_TOL)
+        if not (theirs.argmax(1) == ours.argmax(1)).all():
+            raise AssertionError("a13: top-1 differs from the reference "
+                                 "engine")
+    else:
+        log("a13 reference absent: no reference checkout or no g++ on this "
+            "machine, so the reference engine is not run (no comparison)")
+    log(f"a13 reference card: {smi}")
+    return counts
+
+
+def phase_a13(spec, params, rparams, dev, gpu_name: str, smi: str) -> dict:
+    """Phase 15: the dcp array store, the lane pad and the cross-engine
+    harness (ROADMAP A13.2). Returns the launch counts of each path."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        counts = a13_store(spec, params, rparams, d, dev)
+        log(f"a13 step store seconds={time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        a13_lanepad(spec, params, dev, gpu_name, smi)
+        log(f"a13 step lanepad seconds={time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        counts |= a13_reference(spec, d, dev, smi)
+        log(f"a13 step reference seconds={time.perf_counter() - t0:.2f}")
+    log(f"a13 phase seconds={time.perf_counter() - t_phase:.2f}")
+    return counts
+
+
 def quantize_repro(dev, smi: str) -> None:
     """--quantize-repro: quantize AlexNet (plain, and error-corrected over
     32 random calibration inputs) and ResNet-50 (plain) twice each with
@@ -4065,6 +4443,9 @@ def main() -> int:
     only.add_argument("--only-parallel", action="store_true",
                       help="stop after the build and phase 14 (the "
                            "parallel layer)")
+    only.add_argument("--only-a13", action="store_true",
+                      help="stop after the build and phase 15 (the dcp "
+                           "store, the lane pad, the reference harness)")
     only.add_argument("--gather-times", action="store_true",
                       help="only time pq_fc, pq_decode, pq_lut_gather and "
                            "lrn_fused through the entry points every version "
@@ -4146,6 +4527,13 @@ def main() -> int:
         log(f"script seconds={time.perf_counter() - t_script:.2f}")
         log(json.dumps({"partial": "parallel only", "launches": counts}))
         return 0
+    if args.only_a13:
+        del flush
+        counts = phase_a13(spec, params, synth.random_resnet_pq_params(
+            resnet.resnet50(), seed=0), dev, gpu_name, smi)
+        log(f"script seconds={time.perf_counter() - t_script:.2f}")
+        log(json.dumps({"partial": "a13 only", "launches": counts}))
+        return 0
     check_f32_conv(dev)
     t0 = time.perf_counter()
     vparams = {model: synth.random_vit_pq_params(vit.VITS[model](), seed=0)
@@ -4217,6 +4605,8 @@ def main() -> int:
     counts |= phase_profile(dev, smi, family_pq)
     # phase 14: the parallel layer
     counts |= phase_parallel(spec, params, dev, gpu_name)
+    # phase 15: the dcp store, the lane pad, the reference harness
+    counts |= phase_a13(spec, params, rparams, dev, gpu_name, smi)
     counts["lrn_fused entry point"] = lrn_counts
     counts["general entry points"] = general_counts
     owners_of = {}
@@ -4240,18 +4630,25 @@ def main() -> int:
                       f"quantize alexnet memory B={QUANT_BATCH}",
                       "quantize alexnet memory B=1",
                       f"quantize {QUANT_FAMILY} memory", "a4 gemm",
-                      "a4 memory", "a4 network memory"),
+                      "a4 memory", "a4 network memory",
+                      f"a13 alexnet dcp B={A13_STORE_BATCH}",
+                      "a13 alexnet dcp B=1", "a13 resnet50 dcp",
+                      "a13 reference layout"),
         "pq_lut_gather": ("alexnet memory", "alexnet int8 memory",
                           "io alexnet classify batch_hint=1",
-                          "quantize alexnet memory B=1"),
+                          "quantize alexnet memory B=1",
+                          "a13 alexnet dcp B=1"),
         "pq_fc_fused": ("alexnet memory", "alexnet int8 memory",
                         "io alexnet classify", "io alexnet evaluate_dataset",
                         "vit_l16 memory", "serve alexnet memory",
-                        f"quantize alexnet memory B={QUANT_BATCH}"),
+                        f"quantize alexnet memory B={QUANT_BATCH}",
+                        f"a13 alexnet dcp B={A13_STORE_BATCH}",
+                        "a13 reference layout"),
         "lrn_fused": ("lrn_fused entry point",),
         "pq_conv_fused": ("resnet50 memory", "io resnet50 family",
                           "serve resnet50 memory",
-                          f"quantize {QUANT_FAMILY} memory"),
+                          f"quantize {QUANT_FAMILY} memory",
+                          "a13 resnet50 dcp"),
         "pq_fc": ("alexnet pallas",),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),

@@ -34,6 +34,12 @@ def log(*a):
 _FAMILY_MODELS = ("resnet18", "resnet50", "resnet101", "resnet152",
                   "vit_s16", "vit_b16", "vit_l16")
 _DTYPES = ("bfloat16", "float32", "int8")
+# --store: orbax stays a choice so that a JAX package command line fails
+# with the store's own message (formats/checkpoint.py), not argparse's
+STORES = ("npz", "dcp", "orbax")
+STORE_HELP = ("parameter array store: npz (read by both packages) or dcp "
+              "(params_dcp/, torch.distributed.checkpoint); orbax is the "
+              "JAX package's and raises here")
 
 
 def _impl_kwargs(args) -> dict:
@@ -955,9 +961,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default="/root/reference/AlexNet/Bin.Files")
     im.add_argument("--prefix", default="bvlc_alexnet_aCaF")
     im.add_argument("--synthesize-missing", action="store_true")
-    im.add_argument("--store", default="npz", choices=["npz", "orbax"],
-                    help="parameter array store backend (orbax: not "
-                         "ported yet, ROADMAP.md A13.2)")
+    im.add_argument("--store", default="npz", choices=STORES,
+                    help=STORE_HELP)
     im.set_defaults(fn=cmd_import)
 
     ex = sub.add_parser("export", help="native checkpoint -> reference files")
@@ -1000,8 +1005,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "exported to the reference file layout")
     q.add_argument("--cpu", action="store_true",
                    help="run the quantizer on the host CPU (--device cpu)")
-    q.add_argument("--store", default="npz", choices=["npz", "orbax"],
-                   help="parameter array store backend")
+    q.add_argument("--store", default="npz", choices=STORES,
+                   help=STORE_HELP)
     _add_device(q)
     q.set_defaults(fn=cmd_quantize)
 
@@ -1018,8 +1023,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip quantization (FP32 checkpoint)")
     mf.add_argument("--cpu", action="store_true",
                     help="run the quantizer on the host CPU (--device cpu)")
-    mf.add_argument("--store", default="npz", choices=["npz", "orbax"],
-                    help="parameter array store backend")
+    mf.add_argument("--store", default="npz", choices=STORES,
+                    help=STORE_HELP)
     mf.add_argument("--class-names", default=None, metavar="PATH",
                     help="embed a class-names file (one name per line) "
                          "into the checkpoint")
@@ -1086,6 +1091,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
+        if getattr(args, "store", None) is not None:
+            from qcnn_tpu_torch.formats.checkpoint import check_store
+
+            check_store(args.store)  # before the work whose result it saves
         return args.fn(args)
     except NotImplementedError as e:
         log(f"error: {e}")

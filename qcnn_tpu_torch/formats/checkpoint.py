@@ -1,9 +1,13 @@
 """Native checkpoint format: a self-describing model spec + parameter store.
 
 A copy of ``qcnn_tpu/formats/checkpoint.py`` that writes the same files, so
-a checkpoint written by either package loads in the other. Only the npz
-store is ported: ``store="orbax"``, and a checkpoint that holds only
-``params_ts/``, raise NotImplementedError naming ROADMAP.md A13.2.
+a checkpoint written by either package loads in the other. Two array
+stores: ``npz`` (the default, which both packages read) and ``dcp``
+(``params_dcp/``, PyTorch's sharded checkpoint store,
+``torch.distributed.checkpoint``), the port's counterpart of the JAX
+package's Orbax/TensorStore store (``params_ts/``). Neither package reads
+the other's second store: ``store="orbax"``, and a checkpoint that holds
+only ``params_ts/``, raise NotImplementedError naming the way out.
 
 Replaces the reference's loose-file weight directory (CaffePara::LoadLayerPara,
 src/CaffePara.cc:239-306, where the architecture lives in compiled-in C++ and
@@ -20,9 +24,11 @@ structure) so a checkpoint is about as small as the reference's compact form.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -112,36 +118,140 @@ def unpack_indices(
 
 
 # ---------------------------------------------------------------------------
-# Array stores: npz. The JAX package also writes an Orbax/TensorStore store
-# (``params_ts/``); the port's counterpart is ROADMAP.md A13.2.
+# Array stores: npz (the default) and dcp (torch.distributed.checkpoint: a
+# .metadata file and one .distcp file a rank). Both hold the SAME flat
+# {key: array} dict the manifest describes; load detects which is present.
+# The JAX package's second store, Orbax/TensorStore (params_ts/: an OCDBT
+# B-tree over zarr chunks), has no reader without TensorStore.
 # ---------------------------------------------------------------------------
 
+_DCP_DIR = "params_dcp"
 _ORBAX_DIR = "params_ts"
-_ORBAX_NOT_PORTED = ("the orbax array store is not ported yet: ROADMAP.md "
-                     "A13.2 (save with store='npz')")
+_ORBAX_REFUSED = (
+    "the orbax array store (params_ts/) is the JAX package's and has no "
+    "reader here: save with store='npz' (read by both packages) or "
+    "store='dcp' (this package's sharded store)")
+_ORBAX_UNREADABLE = (
+    "holds only an orbax array store (params_ts/), which this package "
+    "cannot read: re-save it with the JAX package's --store npz")
+
+
+def _in_group() -> bool:
+    """Whether a torch.distributed process group is initialised."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writes_shared_files(store: str) -> bool:
+    """Whether this process writes the files every rank would write alike
+    (spec, manifest, stale-store removal): always, except in a dcp save
+    under a process group, where every rank saves and rank 0 writes them."""
+    if store != "dcp" or not _in_group():
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _barrier(store: str) -> None:
+    """A dcp save under a process group returns on every rank once the
+    checkpoint is whole."""
+    if store == "dcp" and _in_group():
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def check_store(store: str) -> None:
+    """Raise unless `store` is one this package writes."""
+    if store == "orbax":
+        raise NotImplementedError(_ORBAX_REFUSED)
+    if store not in ("npz", "dcp"):
+        raise ValueError(f"unknown array store {store!r}")
 
 
 def _write_arrays(path: str, arrays: dict, store: str) -> None:
-    # remove the OTHER store's artifact too: re-saving into an existing
-    # checkpoint dir must not leave a stale copy behind
+    # remove the OTHER stores' artifacts too: re-saving into an existing
+    # checkpoint dir must not leave a stale copy behind (_read_arrays
+    # prefers params.npz, so a stale one would win)
     import shutil
 
-    if store == "orbax":
-        raise NotImplementedError(_ORBAX_NOT_PORTED)
-    if store != "npz":
-        raise ValueError(f"unknown array store {store!r}")
-    ts = os.path.abspath(os.path.join(path, _ORBAX_DIR))
-    if os.path.isdir(ts):
-        shutil.rmtree(ts)
-    np.savez_compressed(os.path.join(path, "params.npz"), **arrays)
+    check_store(store)
+    # a dcp save clears its own dir too: a save by more ranks left more
+    # .distcp files than this one writes
+    stale = {"npz": (_DCP_DIR, _ORBAX_DIR),
+             "dcp": ("params.npz", _DCP_DIR, _ORBAX_DIR)}[store]
+    if _writes_shared_files(store):
+        for name in stale:
+            p = os.path.join(path, name)
+            if os.path.isdir(p):
+                shutil.rmtree(p)
+            elif os.path.exists(p):
+                os.remove(p)
+    if store == "npz":
+        np.savez_compressed(os.path.join(path, "params.npz"), **arrays)
+        return
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    group = _in_group()
+    _barrier(store)  # no rank writes before rank 0 has cleared the dir
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in arrays.items()}
+    with _single_process_quietly():
+        dcp.save(tensors, storage_writer=dcp.FileSystemWriter(
+            os.path.join(path, _DCP_DIR)), no_dist=not group)
+
+
+@contextlib.contextmanager
+def _single_process_quietly():
+    """dcp warns on every save or load outside a process group that it
+    assumes one process: that is what this package asks for."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore",
+                                message="torch.distributed is disabled")
+        yield
+
+
+def _write_json(path: str, store: str, spec_d: dict, manifest: dict) -> None:
+    """spec.json and manifest.json, as the JAX package writes them; in a dcp
+    save under a process group rank 0 writes them and every rank returns
+    once they are written."""
+    if _writes_shared_files(store):
+        with open(os.path.join(path, "spec.json"), "w") as f:
+            json.dump(spec_d, f, indent=1)
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+    _barrier(store)
+
+
+def _read_dcp(path: str) -> dict:
+    """{key: NumPy array} of a dcp store: shapes and dtypes from its
+    metadata, tensors allocated on the host and filled by dcp.load. Each
+    process reads on its own (no collective), so one rank may load what
+    every rank saved."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    reader = dcp.FileSystemReader(path)
+    meta = reader.read_metadata().state_dict_metadata
+    tensors = {k: torch.empty(m.size, dtype=m.properties.dtype)
+               for k, m in meta.items()}
+    with _single_process_quietly():
+        dcp.load(tensors, storage_reader=dcp.FileSystemReader(path),
+                 no_dist=True)
+    return {k: t.numpy() for k, t in tensors.items()}
 
 
 def _read_arrays(path: str):
     npz = os.path.join(path, "params.npz")
     if os.path.exists(npz):
         return np.load(npz)
+    if os.path.isdir(os.path.join(path, _DCP_DIR)):
+        return _read_dcp(os.path.join(path, _DCP_DIR))
     if os.path.isdir(os.path.join(path, _ORBAX_DIR)):
-        raise NotImplementedError(f"{path}: {_ORBAX_NOT_PORTED}")
+        raise NotImplementedError(f"{path} {_ORBAX_UNREADABLE}")
     raise FileNotFoundError(f"no parameter store under {path}")
 
 
@@ -195,7 +305,10 @@ def _unflatten(flat: dict) -> dict:
 def save_family_checkpoint(path: str, family: str, spec, params: dict,
                            *, store: str = "npz") -> None:
     """Checkpoint for the nested-dict model families (models/resnet.py,
-    models/vit.py). Assignments are bit-packed like the linear format."""
+    models/vit.py). Assignments are bit-packed like the linear format.
+    store='dcp' writes the arrays to a torch.distributed.checkpoint store
+    instead of params.npz (load detects it); under a process group every
+    rank calls it with the same arrays."""
     _check_family(family)
     os.makedirs(path, exist_ok=True)
     flat = _flatten(params)
@@ -219,15 +332,9 @@ def save_family_checkpoint(path: str, family: str, spec, params: dict,
                 "shape": list(arr.shape), "dtype": str(arr.dtype)
             }
     _write_arrays(path, arrays, store)
-    with open(os.path.join(path, "spec.json"), "w") as f:
-        json.dump(
-            {"family": family, **dataclasses.asdict(spec)}, f, indent=1
-        )
-    with open(os.path.join(path, "manifest.json"), "w") as f:
-        json.dump(
-            {"format_version": FORMAT_VERSION, "family": family,
-             "array_store": store, "tensors": tensor_meta}, f
-        )
+    _write_json(path, store, {"family": family, **dataclasses.asdict(spec)},
+                {"format_version": FORMAT_VERSION, "family": family,
+                 "array_store": store, "tensors": tensor_meta})
 
 
 def load_family_checkpoint(path: str):
@@ -335,6 +442,9 @@ def save_checkpoint(
     path: str, spec: ModelSpec, params: Sequence[Optional[dict]],
     *, store: str = "npz"
 ) -> None:
+    """store: 'npz' (params.npz, read by both packages) or 'dcp'
+    (params_dcp/, a torch.distributed.checkpoint store; under a process
+    group every rank calls this with the same params)."""
     os.makedirs(path, exist_ok=True)
     arrays: dict[str, np.ndarray] = {}
     layer_meta = []
@@ -363,13 +473,9 @@ def save_checkpoint(
                 }
         layer_meta.append(meta)
     _write_arrays(path, arrays, store)
-    with open(os.path.join(path, "spec.json"), "w") as f:
-        json.dump(spec_to_dict(spec), f, indent=1)
-    with open(os.path.join(path, "manifest.json"), "w") as f:
-        json.dump(
-            {"format_version": FORMAT_VERSION, "array_store": store,
-             "layers": layer_meta}, f
-        )
+    _write_json(path, store, spec_to_dict(spec),
+                {"format_version": FORMAT_VERSION, "array_store": store,
+                 "layers": layer_meta})
 
 
 def load_checkpoint(path: str) -> tuple[ModelSpec, list]:

@@ -8,6 +8,8 @@ rank:
 
 - the tiny AlexNet-shaped spec (grouped conv, LRN, pool, two PQ FCs)
   sharded in the three FC modes;
+- the dcp array store: one linear and one family checkpoint saved by every
+  rank with the same arrays (``store="dcp"``), loaded by each;
 - the row and column explicit-collective FCs at fc6's geometry
   (9216 -> 4096, S=2304, K=32, D=4, B=8) with ``lutgather``, ``fgather``
   and ``pallas``, and the overlapped ring;
@@ -116,6 +118,44 @@ def _prob_err(max_dprob: float, want: torch.Tensor, min_top1: float = 0.99):
     return check
 
 
+def _dcp_round_trip(save, load):
+    """save(dir) on every rank into one directory (rank 0's, broadcast),
+    then load(dir) on every rank; the directory goes afterwards."""
+    import shutil
+
+    path = [tempfile.mkdtemp(prefix="dryrun_dcp_")
+            if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(path, src=0)
+    try:
+        save(path[0])
+        return load(path[0])
+    finally:
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(path[0])
+
+
+def _same_arrays(want):
+    """Check: the loaded arrays are the saved ones, dtypes and bits (the
+    error is the count of keys that differ); a params list or a family's
+    nested dict."""
+    from qcnn_tpu_torch.formats.checkpoint import _flatten
+
+    def flat(tree):
+        if isinstance(tree, list):
+            tree = {str(i): p for i, p in enumerate(tree) if p is not None}
+        return _flatten(tree)
+
+    def check(got):
+        a, b = flat(want), flat(got)
+        bad = sorted(set(a) ^ set(b)) + [
+            k for k in set(a) & set(b)
+            if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+            or not np.array_equal(a[k], b[k])]
+        return len(bad), 0, not bad
+    return check
+
+
 def tiny_spec():
     """The JAX dry run's miniature AlexNet: a PQ grouped conv, LRN, pool
     and two PQ FCs."""
@@ -155,6 +195,12 @@ def dryrun_multichip(world: int, device=None) -> list[dict]:
 
     device: None means "cuda"; pass "cpu" for gloo ranks on the CPU."""
     from qcnn_tpu_torch._device import default_dtype, resolve_device
+    from qcnn_tpu_torch.formats.checkpoint import (
+        load_checkpoint,
+        load_family_checkpoint,
+        save_checkpoint,
+        save_family_checkpoint,
+    )
     from qcnn_tpu_torch.models import network, resnet, synth, vit, zoo
     from qcnn_tpu_torch.models.prepare import prepare_params
     from qcnn_tpu_torch.models.synth import CodebookPolicy
@@ -205,6 +251,20 @@ def dryrun_multichip(world: int, device=None) -> list[dict]:
         fwd = make_sharded_forward(spec, mesh, fc_mode=mode, device=device)
         report.run(f"tiny {mode} dp={world // tp} tp={tp}",
                    lambda: fwd(sharded, x), _rel_err(TINY_LIMIT, want))
+
+    # the dcp array store: every rank saves one linear and one family
+    # checkpoint with the same arrays, then loads them on its own
+    fspec = resnet.ResNetSpec("dryrun", (1, 1), (64, 128), num_classes=10,
+                              in_size=32, bottleneck=False)
+    fparams = synth.random_resnet_pq_params(fspec, seed=2)
+    report.run("dcp store linear", lambda: _dcp_round_trip(
+        lambda ck: save_checkpoint(ck, spec, params, store="dcp"),
+        lambda ck: load_checkpoint(ck)[1]), _same_arrays(params), warm=False)
+    report.run("dcp store family", lambda: _dcp_round_trip(
+        lambda ck: save_family_checkpoint(ck, "resnet", fspec, fparams,
+                                          store="dcp"),
+        lambda ck: load_family_checkpoint(ck)[2]), _same_arrays(fparams),
+        warm=False)
 
     # explicit-collective FCs at fc6's geometry
     p6 = _fc6_params(11, device)

@@ -292,3 +292,20 @@ def test_mesh_engine_from_forward_serves_and_stops(ranks):
                                       with_softmax=True))
     np.testing.assert_allclose(port(ranks, "engine_dp"), want, rtol=1e-4,
                                atol=1e-4)
+
+
+def test_dcp_checkpoint_saved_by_every_rank_loads_alike(ranks):
+    """Every rank called save_checkpoint(store="dcp") and
+    save_family_checkpoint(store="dcp") with the same arrays: one copy is
+    written (the default planner keeps each replicated tensor once), and
+    every rank's own load gives the saved arrays and dtypes."""
+    files = list(port(ranks, "dcp_files"))
+    assert files[0] == ".metadata" and "__0_0.distcp" in files
+    sizes = dict(zip(files, port(ranks, "dcp_bytes")))
+    one_copy = sum(np.asarray(v).nbytes for p in W.trap_params(perm=True)
+                   for v in (p or {}).values())
+    assert sum(n for f, n in sizes.items() if f != ".metadata") < 2 * one_copy
+    for key, v in W.store_expected().items():
+        got = port(ranks, key)
+        assert got.dtype == v.dtype, key
+        np.testing.assert_array_equal(got, v)

@@ -34,7 +34,8 @@ from qcnn_tpu_torch.models.interop import (
 from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "qcnn_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "qcnn_tpu", "ml_dtypes", "orbax",
+             "tensorstore")
 
 
 def _forbidden(name: str) -> bool:
@@ -63,7 +64,8 @@ def test_port_modules_import_no_jax_in_a_fresh_interpreter():
                  "formats.caffe_pb", "formats.onnx_import", "parallel",
                  "parallel.mesh", "parallel.sharding",
                  "parallel.shardmap_ops", "parallel.pipeline",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "models.lanepad",
+                 "eval.reference_engine"):
         assert f"qcnn_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -129,7 +131,8 @@ def test_no_string_names_a_jax_package_module():
     for copied in ("quantizer/kmeans.py", "quantizer/pq.py",
                    "quantizer/opq.py", "quantizer/sequential.py",
                    "formats/caffe_pb.py", "formats/onnx_import.py",
-                   "formats/checkpoint.py"):
+                   "formats/checkpoint.py", "models/lanepad.py",
+                   "eval/reference_engine.py"):
         assert f"qcnn_tpu_torch/{copied}" in names
     for path in paths:
         bad = [s for s in _strings_of(path) if pattern.search(s)]

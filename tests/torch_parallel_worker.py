@@ -10,6 +10,8 @@ only; its NumPy makers of the seeded params and inputs are shared with
 the tests.
 
 Usage: python tests/torch_parallel_worker.py SUITE RANK WORLD STORE OUT
+(SUITE: parallel, pipeline or store; WORLD 4, or 2 for the store suite
+that ``tests/test_torch_array_store.py`` spawns)
 """
 
 import os
@@ -41,16 +43,17 @@ class Ranks:
     run while the test computes the JAX side); :meth:`results` waits for
     them, at most TIMEOUT_S in all, and loads each rank's outputs."""
 
-    def __init__(self, suite: str, out_dir: str):
+    def __init__(self, suite: str, out_dir: str, world: int = WORLD):
         self._dir = out_dir
         self._results = None
+        self.world = world
         env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
         store = os.path.join(out_dir, "store")
         self._logs = [open(os.path.join(out_dir, f"log{r}"), "w")
-                      for r in range(WORLD)]
+                      for r in range(world)]
         self._procs = [
             subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                              suite, str(r), str(WORLD), store, out_dir],
+                              suite, str(r), str(world), store, out_dir],
                              env=env, stdout=log, stderr=subprocess.STDOUT)
             for r, log in enumerate(self._logs)]
         self._deadline = time.monotonic() + TIMEOUT_S
@@ -74,7 +77,7 @@ class Ranks:
                                          f"{p.returncode}):\n{self._log(r)}")
             self._results = [
                 dict(np.load(os.path.join(self._dir, f"rank{r}.npz")))
-                for r in range(WORLD)]
+                for r in range(self.world)]
         return self._results
 
     def close(self) -> None:
@@ -196,7 +199,7 @@ def _np(t) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def parallel_cases(rank: int, world: int) -> dict:
+def parallel_cases(rank: int, world: int, out_dir: str) -> dict:
     from torch.distributed.tensor import Replicate, Shard
 
     from qcnn_tpu_torch import core
@@ -393,6 +396,53 @@ def parallel_cases(rank: int, world: int) -> dict:
         rn_softmax, rn, (16, 16, 3), config=cfg, mesh=meshes[(4, 1)],
         device="cpu")
     out["engine_dp"] = _serve(eng, rn_images, rank)
+    out.update(store_cases(rank, world, out_dir))
+    return out
+
+
+def store_expected() -> dict:
+    """What every rank of store_cases must load: {output key: array}."""
+    from qcnn_tpu_torch.formats import checkpoint
+    from qcnn_tpu_torch.models import resnet, synth
+
+    want = {f"dcp_linear_{i}_{key}": v
+            for i, p in enumerate(trap_params(perm=True))
+            for key, v in (p or {}).items()}
+    flat = checkpoint._flatten(synth.random_resnet_pq_params(
+        resnet_tiny(resnet), seed=3))
+    want.update({f"dcp_family_{key.replace('/', '.')}": v
+                 for key, v in flat.items()})
+    return want
+
+
+def store_cases(rank: int, world: int, out_dir: str) -> dict:
+    """The dcp array store: every rank saves one linear and one family
+    checkpoint with the same arrays, then each rank loads them on its
+    own."""
+    from qcnn_tpu_torch import core
+    from qcnn_tpu_torch.formats import checkpoint
+    from qcnn_tpu_torch.models import resnet, synth
+
+    out = {}
+    ck = os.path.join(out_dir, "dcp_linear")
+    checkpoint.save_checkpoint(ck, trap_spec(core), trap_params(perm=True),
+                               store="dcp")
+    files = sorted(os.listdir(os.path.join(ck, "params_dcp")))
+    out["dcp_files"] = np.array(files)
+    out["dcp_bytes"] = np.array([os.path.getsize(os.path.join(
+        ck, "params_dcp", f)) for f in files])
+    _, back = checkpoint.load_checkpoint(ck)
+    for i, p in enumerate(back):
+        for key, v in (p or {}).items():
+            out[f"dcp_linear_{i}_{key}"] = v
+    ck = os.path.join(out_dir, "dcp_family")
+    rspec = resnet_tiny(resnet)
+    checkpoint.save_family_checkpoint(
+        ck, "resnet", rspec, synth.random_resnet_pq_params(rspec, seed=3),
+        store="dcp")
+    flat = checkpoint._flatten(checkpoint.load_family_checkpoint(ck)[2])
+    for key, v in flat.items():
+        out[f"dcp_family_{key.replace('/', '.')}"] = v
     return out
 
 
@@ -411,7 +461,7 @@ def _serve(engine, images, rank: int) -> np.ndarray:
         engine.stop()
 
 
-def pipeline_cases(rank: int, world: int) -> dict:
+def pipeline_cases(rank: int, world: int, out_dir: str) -> dict:
     from qcnn_tpu_torch.models import synth, vit
     from qcnn_tpu_torch.parallel.pipeline import (
         make_pipeline_mesh,
@@ -464,7 +514,8 @@ def pipeline_cases(rank: int, world: int) -> dict:
     return out
 
 
-SUITES = {"parallel": parallel_cases, "pipeline": pipeline_cases}
+SUITES = {"parallel": parallel_cases, "pipeline": pipeline_cases,
+          "store": store_cases}
 
 
 def main() -> int:
@@ -478,7 +529,7 @@ def main() -> int:
     init_distributed(f"file://{store}", world, rank)
     assert dist.get_backend() == "gloo"
     try:
-        out = SUITES[suite](rank, world)
+        out = SUITES[suite](rank, world, out_dir)
         dist.barrier()
     finally:
         dist.destroy_process_group()
