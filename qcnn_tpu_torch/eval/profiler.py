@@ -195,7 +195,7 @@ def profile_layers(
 
         def fn():
             # a conv of an in-step impl decodes its own weight here
-            return network.apply_layer(layer, p, x, strategy,
+            return network.apply_layer(layer, p, x, strategy, index=i,
                                        first_fc=first_fc,
                                        compute_dtype=compute_dtype)
 

@@ -45,6 +45,7 @@ from qcnn_tpu_torch.ops.misc import (
     relu,
     softmax,
 )
+from qcnn_tpu_torch.utils.spans import span
 
 # The request-level strategy vocabulary of the JAX package
 # (qcnn_tpu/models/network.py:59-63); every name runs.
@@ -143,56 +144,73 @@ def fc_input(x: torch.Tensor, first_fc: bool) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
 
+def _emit(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """A conv's or FC's output as the activation between layers: cast to
+    ``compute_dtype`` (int8 codes stay codes)."""
+    if compute_dtype is not None and x.dtype not in (torch.int8,
+                                                      compute_dtype):
+        with span("epilogue"):
+            x = x.to(compute_dtype)
+    return x
+
+
 def apply_layer(layer, p: Optional[dict], x: torch.Tensor, impl: str, *,
-                first_fc: bool = False, compute_dtype=None,
+                index: int, first_fc: bool = False, compute_dtype=None,
                 with_softmax: bool = True,
                 decoded: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One layer of :func:`forward`: ``impl`` is the layer's resolved
+    """One layer of :func:`forward`: ``index`` is the layer's place in the
+    spec, which names its span (``utils.spans``); ``impl`` its resolved
     strategy ('dense' for prepared or int8 weights), ``decoded`` its weight
     from the step's grouped decode (``ops.conv.instep_decodes``; None
     decodes in the layer)."""
     if isinstance(layer, ConvSpec):
         conv = dict(stride=layer.stride, pad=layer.pad, groups=layer.groups)
-        if impl == "dense" and "kernel_q" in p:
-            x = conv_dense_int8(x, p["kernel_q"], p["scale"], p["bias"],
-                                act_scale=p.get("act_scale"),
-                                out_scale=p.get("out_scale"), **conv)
-        elif impl == "dense":
-            x = conv_dense(x, p["kernel"], p["bias"],
-                           out_dtype=compute_dtype, **conv)
-        else:
-            x = pq_conv(x, p, impl=impl, out_dtype=compute_dtype,
-                        decoded=decoded, **conv)
-    elif isinstance(layer, FCSpec):
-        x = fc_input(x, first_fc)
-        if impl == "dense" and "weight_q" in p:
-            x = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
-                              act_scale=p.get("act_scale"),
-                              out_scale=p.get("out_scale"))
-        elif impl == "dense":
-            x = fc_dense(x, p["weight"], p["bias"], out_dtype=compute_dtype)
-        else:
-            x = pq_fc(x, p, impl=impl, out_dtype=compute_dtype)
-    elif isinstance(layer, PoolSpec):
-        return caffe_max_pool(x, kernel=layer.kernel, stride=layer.stride,
-                              pad=layer.pad)
-    elif isinstance(layer, ReLUSpec):
-        return relu(x)
-    elif isinstance(layer, LRNSpec):
-        return lrn(x, size=layer.size, alpha=layer.alpha, beta=layer.beta,
-                   k=layer.k, channel_map=layer.channel_map,
-                   sum_dtype=compute_dtype)
-    elif isinstance(layer, DropoutSpec):
+        with span("conv", index):
+            if impl == "dense" and "kernel_q" in p:
+                x = conv_dense_int8(x, p["kernel_q"], p["scale"], p["bias"],
+                                    act_scale=p.get("act_scale"),
+                                    out_scale=p.get("out_scale"), **conv)
+            elif impl == "dense":
+                x = conv_dense(x, p["kernel"], p["bias"],
+                               out_dtype=compute_dtype, **conv)
+            else:
+                x = pq_conv(x, p, impl=impl, out_dtype=compute_dtype,
+                            decoded=decoded, **conv)
+            return _emit(x, compute_dtype)
+    if isinstance(layer, FCSpec):
+        with span("fc", index):
+            x = fc_input(x, first_fc)
+            if impl == "dense" and "weight_q" in p:
+                x = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
+                                  act_scale=p.get("act_scale"),
+                                  out_scale=p.get("out_scale"))
+            elif impl == "dense":
+                x = fc_dense(x, p["weight"], p["bias"],
+                             out_dtype=compute_dtype)
+            else:
+                x = pq_fc(x, p, impl=impl, out_dtype=compute_dtype)
+            return _emit(x, compute_dtype)
+    if isinstance(layer, PoolSpec):
+        with span("pool", index):
+            return caffe_max_pool(x, kernel=layer.kernel,
+                                  stride=layer.stride, pad=layer.pad)
+    if isinstance(layer, ReLUSpec):
+        with span("relu", index):
+            return relu(x)
+    if isinstance(layer, LRNSpec):
+        with span("lrn", index):
+            return lrn(x, size=layer.size, alpha=layer.alpha,
+                       beta=layer.beta, k=layer.k,
+                       channel_map=layer.channel_map,
+                       sum_dtype=compute_dtype)
+    if isinstance(layer, DropoutSpec):
         return dropout_inference(x)
-    elif isinstance(layer, SoftmaxSpec):
-        return softmax(x.float()) if with_softmax else x
-    else:
-        raise TypeError(f"unhandled layer spec: {layer!r}")
-    # conv and FC: activations between layers in compute_dtype (int8 codes
-    # stay codes)
-    if compute_dtype is not None and x.dtype != torch.int8:
-        x = x.to(compute_dtype)
-    return x
+    if isinstance(layer, SoftmaxSpec):
+        if not with_softmax:
+            return x
+        with span("softmax", index):
+            return softmax(x.float())
+    raise TypeError(f"unhandled layer spec: {layer!r}")
 
 
 def forward(
@@ -234,49 +252,52 @@ def forward(
       (B, num_classes) float32 probabilities (or logits if
       with_softmax=False); with collect_act_amax, a (probs, amax_dict).
     """
-    device = resolve_device(device)
-    x = torch.as_tensor(x, device=device)
-    if x.ndim != 4:
-        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
-    if conv_impls is None or fc_impls is None:
-        # resolve only the missing side — a caller passing one pre-resolved
-        # tuple must not have it silently discarded
-        conv_r, fc_r = resolve_strategy(
-            spec, params, x.shape[0], conv_impl, fc_impl,
-            dtype=(compute_dtype if compute_dtype is not None
-                   else torch.float32))
-        conv_impls = conv_impls if conv_impls is not None else conv_r
-        fc_impls = fc_impls if fc_impls is not None else fc_r
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
+    with span("forward"):
+        device = resolve_device(device)
+        x = torch.as_tensor(x, device=device)
+        if x.ndim != 4:
+            raise ValueError(
+                f"expected NHWC input, got shape {tuple(x.shape)}")
+        if conv_impls is None or fc_impls is None:
+            # resolve only the missing side — a caller passing one
+            # pre-resolved tuple must not have it silently discarded
+            conv_r, fc_r = resolve_strategy(
+                spec, params, x.shape[0], conv_impl, fc_impl,
+                dtype=(compute_dtype if compute_dtype is not None
+                       else torch.float32))
+            conv_impls = conv_impls if conv_impls is not None else conv_r
+            fc_impls = fc_impls if fc_impls is not None else fc_r
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
 
-    act_amax: dict[int, torch.Tensor] = {}
+        act_amax: dict[int, torch.Tensor] = {}
 
-    def record_amax(i, v):
+        def record_amax(i, v):
+            if collect_act_amax:
+                act_amax[i] = v.float().abs().amax()
+
+        # every PQ conv that decodes in the step, in one launch at its start
+        pq_convs = step_convs(spec, params, conv_impls, device, upto)
+        decoded = instep_decodes(pq_convs)
+
+        first_fc_done = False
+        for i, (layer, p) in enumerate(zip(spec.layers, params)):
+            if i == upto:
+                return x
+            p = pq_convs[i][0] if i in pq_convs else _to_device(p, device)
+            first_fc = isinstance(layer, FCSpec) and not first_fc_done
+            first_fc_done = first_fc_done or first_fc
+            if isinstance(layer, (ConvSpec, FCSpec)):
+                record_amax(i, x)
+            impl = (conv_impls[i] if isinstance(layer, ConvSpec)
+                    else fc_impls[i])
+            x = apply_layer(layer, p, x, impl, index=i, first_fc=first_fc,
+                            compute_dtype=compute_dtype,
+                            with_softmax=with_softmax,
+                            decoded=decoded.get(i))
         if collect_act_amax:
-            act_amax[i] = v.float().abs().amax()
-
-    # every PQ conv that decodes in the step, in one launch at its start
-    pq_convs = step_convs(spec, params, conv_impls, device, upto)
-    decoded = instep_decodes(pq_convs)
-
-    first_fc_done = False
-    for i, (layer, p) in enumerate(zip(spec.layers, params)):
-        if i == upto:
-            return x
-        p = pq_convs[i][0] if i in pq_convs else _to_device(p, device)
-        first_fc = isinstance(layer, FCSpec) and not first_fc_done
-        first_fc_done = first_fc_done or first_fc
-        if isinstance(layer, (ConvSpec, FCSpec)):
-            record_amax(i, x)
-        impl = (conv_impls[i] if isinstance(layer, ConvSpec)
-                else fc_impls[i])
-        x = apply_layer(layer, p, x, impl, first_fc=first_fc,
-                        compute_dtype=compute_dtype,
-                        with_softmax=with_softmax, decoded=decoded.get(i))
-    if collect_act_amax:
-        return x, act_amax
-    return x
+            return x, act_amax
+        return x
 
 
 def make_forward_fn(

@@ -39,6 +39,7 @@ from qcnn_tpu_torch.ops.misc import caffe_max_pool, relu
 from qcnn_tpu_torch.quantizer.kmeans import split
 from qcnn_tpu_torch.quantizer.opq import inverse_permutation
 from qcnn_tpu_torch.quantizer.pq import quantize_conv_layer, quantize_fc_layer
+from qcnn_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,9 +207,10 @@ def _block_routes(inputs: dict, block) -> dict:
     return routes
 
 
-def _run_block(x, block, stride: int, bottleneck: bool, cast):
-    """One residual block (shared by forward and forward_segments). Every
-    conv of the block that decodes its weight in the step does so in one
+def _run_block(x, block, stride: int, bottleneck: bool, cast, key: str):
+    """One residual block (shared by forward and forward_segments); ``key``
+    ("s{stage}b{block}") names its spans (``utils.spans``). Every conv of
+    the block that decodes its weight in the step does so in one
     ``pq_decode`` launch at the head of the block; the weights live until
     the block returns."""
     od = getattr(cast, "dtype", None)
@@ -216,38 +218,60 @@ def _run_block(x, block, stride: int, bottleneck: bool, cast):
     routes = _block_routes(inputs, block)
     decoded = conv_ops.instep_decodes(routes)
 
-    def conv(v, name):
+    def conv(v, name, recast=True):
+        """Conv ``name`` on v, its output cast to the activation dtype
+        unless ``recast`` is False (the ReLU after it casts)."""
         shape, dtype, st, pad = inputs[name]
         if tuple(v.shape) != shape or v.dtype != dtype:
             raise RuntimeError(
                 f"{name}: input {tuple(v.shape)} {v.dtype}, but its route "
                 f"was decided for {shape} {dtype}")
         _, impl, _ = routes.get(name, (None, None, None))
-        return _apply_conv(v, block[name], stride=st, pad=pad, out_dtype=od,
-                           impl=impl, decoded=decoded.get(name))
+        with span("conv", key, name):
+            y = _apply_conv(v, block[name], stride=st, pad=pad, out_dtype=od,
+                            impl=impl, decoded=decoded.get(name))
+            if not recast or od is None or y.dtype == od:
+                return y
+            with span("epilogue"):
+                return cast(y)
 
-    shortcut = cast(conv(x, "proj")) if "proj" in block else x
-    y = cast(relu(conv(x, "conv1")))
+    def relu_cast(v, name):
+        with span("relu", key, name):
+            return cast(relu(v))
+
+    shortcut = conv(x, "proj") if "proj" in block else x
+    y = relu_cast(conv(x, "conv1", recast=False), "conv1")
     if bottleneck:
-        y = cast(relu(conv(y, "conv2")))
-        y = cast(conv(y, "conv3"))
+        y = relu_cast(conv(y, "conv2", recast=False), "conv2")
+        y = conv(y, "conv3")
     else:
-        y = cast(conv(y, "conv2"))
-    return relu(y + shortcut)
+        y = conv(y, "conv2")
+    with span("residual", key):
+        return relu(y + shortcut)
 
 
 def _run_stem(x, params, cast):
-    x = cast(relu(_apply_conv(x, params["stem"], stride=2, pad=3,
-                              out_dtype=getattr(cast, "dtype", None))))
+    with span("conv", "stem"):
+        x = _apply_conv(x, params["stem"], stride=2, pad=3,
+                        out_dtype=getattr(cast, "dtype", None))
+    with span("relu", "stem"):
+        x = cast(relu(x))
     # floor-mode pool: 112 -> 56, as torchvision
-    return caffe_max_pool(x, kernel=3, stride=2, pad=1, ceil_mode=False)
+    with span("pool", "stem"):
+        return caffe_max_pool(x, kernel=3, stride=2, pad=1, ceil_mode=False)
 
 
 def _run_head(x, params, cast, with_softmax: bool):
-    x = x.float().mean(dim=(1, 2))  # global average pool
-    logits = _apply_fc(cast(x), params["fc"]).float()
+    with span("pool", "head"):
+        x = x.float().mean(dim=(1, 2))  # global average pool
+    with span("fc", "head"):
+        logits = _apply_fc(cast(x), params["fc"])
+        if logits.dtype != torch.float32:
+            with span("epilogue"):
+                logits = logits.float()
     if with_softmax:
-        logits = torch.softmax(logits, dim=-1)
+        with span("softmax", "head"):
+            logits = torch.softmax(logits, dim=-1)
     return logits
 
 
@@ -259,15 +283,17 @@ def forward(params: dict, x, *, spec: ResNetSpec, compute_dtype=None,
     compute_dtype: activation dtype between layers; None keeps x's dtype.
     device: None means "cuda"; pass "cpu" to run the plain versions. The
       params must already be there (``prepare_params(device=...)``)."""
-    device = resolve_device(device)
-    x = torch.as_tensor(x, device=device)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-    cast = _make_cast(compute_dtype)
-    x = _run_stem(x, params, cast)
-    for key, stride, _ in block_layout(spec):
-        x = _run_block(x, params[key], stride, spec.bottleneck, cast)
-    return _run_head(x, params, cast, with_softmax)
+    with span("forward"):
+        device = resolve_device(device)
+        x = torch.as_tensor(x, device=device)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        cast = _make_cast(compute_dtype)
+        x = _run_stem(x, params, cast)
+        for key, stride, _ in block_layout(spec):
+            x = _run_block(x, params[key], stride, spec.bottleneck, cast,
+                           key)
+        return _run_head(x, params, cast, with_softmax)
 
 
 def forward_segments(spec: ResNetSpec, *, compute_dtype=None,
@@ -288,7 +314,8 @@ def forward_segments(spec: ResNetSpec, *, compute_dtype=None,
 
         def stage(x, p, blocks=blocks):
             for key, stride in blocks:
-                x = _run_block(x, p[key], stride, spec.bottleneck, cast)
+                x = _run_block(x, p[key], stride, spec.bottleneck, cast,
+                               key)
             return x
 
         segs.append((f"stage{s}", stage))

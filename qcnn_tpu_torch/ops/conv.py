@@ -52,6 +52,7 @@ from qcnn_tpu_torch.ops.fc import (
     quantize_activations_int8,
     requantize_int8,
 )
+from qcnn_tpu_torch.utils.spans import NO_SPAN, span
 
 # memory_fused's 1x1 reroute gates, copied from the JAX package
 # (qcnn_tpu/ops/conv.py:30-41). _FC1X1_MAX_ROWS = 0 keeps the reroute off,
@@ -192,10 +193,12 @@ def conv_dense(
                          deterministic=cudnn.deterministic,
                          allow_tf32=False):
             y = F.conv2d(xn.float(), w.float(), stride=stride, padding=pad,
-                         groups=groups).to(out_dtype)
+                         groups=groups)
     if out_hw is not None:
         y = y[:, :, :out_hw[0], :out_hw[1]]
-    y = y + bias.to(out_dtype)[:, None, None]
+    with span("epilogue"):
+        y = y.to(out_dtype)
+        y = y + bias.to(out_dtype)[:, None, None]
     return y.permute(0, 2, 3, 1)
 
 
@@ -287,9 +290,10 @@ def conv_dense_int8(x: torch.Tensor, kernel_q: torch.Tensor,
     (qcnn_tpu/ops/conv.py:206-236)."""
     xq, x_scale = quantize_activations_int8(x, act_scale)
     acc = conv_int8_sums(xq, kernel_q, stride=stride, pad=pad, groups=groups)
-    if out_scale is not None:
-        return requantize_int8(acc, x_scale, k_scale, bias, out_scale)
-    return acc.float() * (x_scale * k_scale) + bias
+    with span("epilogue"):
+        if out_scale is not None:
+            return requantize_int8(acc, x_scale, k_scale, bias, out_scale)
+        return acc.float() * (x_scale * k_scale) + bias
 
 
 def pq_conv_decode(
@@ -369,7 +373,8 @@ def pq_conv_gemm(x: torch.Tensor, params: dict, *, stride: int, pad: int,
     wo = (w_ + 2 * pad - kw) // stride + 1
     out = matmul(patches.transpose(1, 2).reshape(b * ho * wo, -1), w2,
                  out_dtype)
-    return out.reshape(b, ho, wo, cout) + params["bias"].to(out.dtype)
+    with span("epilogue"):
+        return out.reshape(b, ho, wo, cout) + params["bias"].to(out.dtype)
 
 
 def pq_conv_lut(x: torch.Tensor, params: dict, *, stride: int, pad: int,
@@ -399,6 +404,15 @@ def pq_conv_lut(x: torch.Tensor, params: dict, *, stride: int, pad: int,
                       out_dtype=out_dtype)
 
 
+def _cast(y: torch.Tensor, out_dtype) -> torch.Tensor:
+    """A fused kernel's float32 output in ``out_dtype`` (kept when
+    None)."""
+    if out_dtype is None or y.dtype == out_dtype:
+        return y
+    with span("epilogue"):
+        return y.to(out_dtype)
+
+
 def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
                    groups: int, out_dtype) -> torch.Tensor:
     """A 1x1 conv as an FC over the flattened pixels, through the
@@ -417,7 +431,7 @@ def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
             "bias": params["bias"]}
     y = pq_fc_fused.pq_fc_fused(x.reshape(b * h * w, cin), fc_p,
                                 decode="gather").reshape(b, h, w, -1)
-    return y.to(out_dtype) if out_dtype is not None else y
+    return _cast(y, out_dtype)
 
 
 def pq_conv(
@@ -455,7 +469,7 @@ def pq_conv(
                 "for the auto-fallback mix)")
         out = pq_conv_fused.pq_conv_fused(x, params, stride=stride, pad=pad,
                                           groups=groups)
-        return out.to(out_dtype) if out_dtype is not None else out
+        return _cast(out, out_dtype)
     if impl == "memory_fused":
         route = memory_fused_route(params, x.shape, x.dtype, stride=stride,
                                    pad=pad, groups=groups)
@@ -495,7 +509,8 @@ def instep_decodes(convs: dict) -> dict:
     caller drops the dict."""
     keys = [key for key, (_, impl, _) in convs.items()
             if impl in _INSTEP_LAYOUTS]
-    buffers = pq_decode.decode_conv_kernels_many(
-        [(convs[key][0]["codebooks"], convs[key][0]["assignments"],
-          convs[key][2]) for key in keys])
+    with span("decode") if keys else NO_SPAN:
+        buffers = pq_decode.decode_conv_kernels_many(
+            [(convs[key][0]["codebooks"], convs[key][0]["assignments"],
+              convs[key][2]) for key in keys])
     return dict(zip(keys, buffers))

@@ -31,6 +31,7 @@ from qcnn_tpu_torch.ops.cuda import (
     pq_fc_fused,
     pq_lut_gather,
 )
+from qcnn_tpu_torch.utils.spans import span
 
 # the JAX Pallas gather's one-vreg table, kept on the names whose JAX entry
 # points raise past it (qcnn_tpu/ops/pallas/pq_decode.py:88-92)
@@ -92,7 +93,8 @@ def fc_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.dtype != weight.dtype:
         x = x.to(weight.dtype)
     out = matmul(x, weight, out_dtype)
-    return out + bias.to(out.dtype)
+    with span("epilogue"):
+        return out + bias.to(out.dtype)
 
 
 def padded_k(k: int) -> int:
@@ -215,9 +217,10 @@ def fc_dense_int8(x: torch.Tensor, weight_q: torch.Tensor,
     values (qcnn_tpu/ops/fc.py:105-131)."""
     xq, x_scale = quantize_activations_int8(x, act_scale)
     acc = int8_matmul(xq, weight_q)
-    if out_scale is not None:
-        return requantize_int8(acc, x_scale, w_scale, bias, out_scale)
-    return acc.float() * (x_scale * w_scale) + bias
+    with span("epilogue"):
+        if out_scale is not None:
+            return requantize_int8(acc, x_scale, w_scale, bias, out_scale)
+        return acc.float() * (x_scale * w_scale) + bias
 
 
 def pq_fc_onehot(x: torch.Tensor, params: dict, out_dtype=None
@@ -231,8 +234,10 @@ def pq_fc_onehot(x: torch.Tensor, params: dict, out_dtype=None
     onehot = torch.nn.functional.one_hot(
         params["assignments"].t().long(), k).float()  # (S, Cout, K)
     out_dtype = out_dtype or torch.float32
-    out = torch.einsum("bsk,sok->bo", lut, onehot).to(out_dtype)
-    return out + params["bias"].to(out_dtype)
+    out = torch.einsum("bsk,sok->bo", lut, onehot)
+    with span("epilogue"):
+        out = out.to(out_dtype)
+        return out + params["bias"].to(out_dtype)
 
 
 def pq_fc_gather(x: torch.Tensor, params: dict) -> torch.Tensor:

@@ -304,7 +304,7 @@ def make_sharded_forward(
                     h = h.to(compute_dtype)
             else:
                 h = network.apply_layer(
-                    layer, p, h, impl, first_fc=first_fc,
+                    layer, p, h, impl, index=i, first_fc=first_fc,
                     compute_dtype=compute_dtype, with_softmax=with_softmax,
                     decoded=decoded.get(i))
         return gather_batch(h, mesh, batch)

@@ -132,7 +132,7 @@ def quantize_resnet_ec(
                                      pad=1))
             quant("conv2", y)
         out[key] = qblk
-        a = R._run_block(a, rblk, stride, spec.bottleneck, cast)
+        a = R._run_block(a, rblk, stride, spec.bottleneck, cast, key)
     pooled = _host(a.float().mean(dim=(1, 2)))
     out["fc"] = quantize_fc_layer(
         split(gen), np.asarray(dense["fc"]["weight"]).T,

@@ -1,0 +1,48 @@
+"""Named ranges of the forwards for ``torch.profiler``.
+
+``span(kind, *where)`` marks one boundary of a forward: the step itself
+(``qcnn.forward``), its grouped decode (``qcnn.decode``), a layer's product
+(``qcnn.conv:<layer>``, ``qcnn.fc:<layer>``), the passes after a product
+that add its bias or cast its dtype (``qcnn.epilogue``), and the plain
+layers (``qcnn.lrn:<layer>``, ``qcnn.pool:<layer>``, ``qcnn.relu:<layer>``,
+``qcnn.softmax:<layer>``, ``qcnn.residual:<block>``). A profiler that is
+running records each as a range of the host's timeline; a kernel belongs
+to the innermost range around its launch.
+
+A range is torch's ``RecordFunction`` through ``_RecordFunctionFast``, at
+about 2 us a range on the host where ``torch.profiler.record_function``
+takes about 14: ResNet-50 opens ~180 ranges a step, which through
+``record_function`` made its traced steps bound by the host. It records at
+the function scope, not the user scope of ``record_function``, so the
+profiler keeps it on the host's timeline only: kineto mirrors user-scope
+ranges onto the device's timeline as ``gpu_user_annotation`` events, which
+a reduction of device activity would count as device work.
+
+With no profiler running, ``span`` returns one shared context manager that
+does nothing: no range, no allocation, no string formatted. The parts of
+``where`` are joined with "." only under a profiler, so callers pass them
+unformatted. The profiler is the only switch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from torch._C._profiler import _RecordFunctionFast as _Range
+from torch.autograd import profiler as _profiler
+
+PREFIX = "qcnn."
+# a record_function range costs ~10 us a call on the host even with no
+# profiler running; this check costs ~0.5 us
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(kind: str, *where):
+    """A ``qcnn.<kind>[:<where parts joined by '.'>]`` range while a torch
+    profiler runs, else :data:`NO_SPAN`."""
+    if not _profiler._is_profiler_enabled:
+        return NO_SPAN
+    name = PREFIX + kind
+    if where:
+        name += ":" + ".".join(map(str, where))
+    return _Range(name)

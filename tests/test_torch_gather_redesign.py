@@ -366,9 +366,10 @@ SMALL = {
 RESNET_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-2, 2e-3)}
 
 
-def _block_per_conv(x, block, stride, bottleneck, cast):
+def _block_per_conv(x, block, stride, bottleneck, cast, key):
     """A residual block in which every conv resolves MEMORY_IMPL and decodes
-    for itself: the forward before the grouped decode."""
+    for itself: the forward before the grouped decode (``key``, the block's
+    name in its spans, is unused)."""
     od = getattr(cast, "dtype", None)
 
     def conv(v, p, **kw):
