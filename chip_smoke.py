@@ -75,7 +75,8 @@ Phases, each fatal on failure (any exception exits non-zero):
    library call's time. Every time line of a planned kernel prints the
    plan. The general kernels of pq_lut_gather and lrn_fused are timed on
    ragged shapes into rows of their own. Then lrn_fused's own entry point,
-   counted (no forward runs it, as in the JAX package), and the four
+   counted (every AlexNet-family forward on the card also runs it:
+   ops.misc.lrn_route), and the four
    general kernels through the public entry points on ragged shapes, each
    counted under its own name.
 5. end to end: full-width AlexNet-PQ, synthetic params (seed 0), bf16,
@@ -383,6 +384,13 @@ PEAKS = {
 }
 ALEXNET_CONVS = ("conv1", "conv2", "conv3", "conv4", "conv5")
 ALEXNET_FCS = ("fc6", "fc7", "fc8")
+# AlexNet's two LRNs on the card, each one lrn_fused launch a forward
+# (ops.misc.lrn_route: bf16 or f32 activations, no channel_map), and the
+# launches of an AlexNet memory-mode forward at a large batch (fc6-fc8 in
+# pq_fc_fused) and at B=1 (fc6-fc8 in pq_lut_gather)
+LRNS = {"lrn_fused": 2}
+ALEXNET_MEMORY_B256 = {**LRNS, "pq_decode": 1, "pq_fc_fused": 3}
+ALEXNET_MEMORY_B1 = {**LRNS, "pq_decode": 1, "pq_lut_gather": 3}
 # peak_alloc_bytes of the memory-mode runs when every conv decoded for
 # itself (this script's run of the version before the grouped decode, on an
 # H100 80GB HBM3): a group's weights now live until its block or step ends
@@ -1151,7 +1159,7 @@ def phase_other_kernels(spec, geo, dev, flush, peaks):
                    peaks)
     rows["lrn_fused_general"] = close_row(lrg)
 
-    # lrn_fused's own entry point, as its users call it (no forward does)
+    # lrn_fused's own entry point, as ops.misc.lrn calls it
     cuda_ops.reset_launches()
     for x, kw in inputs:
         lrn_fused.lrn_fused(x, **kw)
@@ -1552,12 +1560,12 @@ def phase_end_to_end(spec, params, dev, gpu_name):
 
     x_all = torch.from_numpy(synth.random_input(spec, 256, seed=1)).to(dev)
     expect = {  # launches per forward of each kernel, by strategy and batch
-        ("auto", "auto", 256): {},
-        ("auto", "auto", 1): {},
-        ("memory", "memory", 256): {"pq_decode": 1, "pq_fc_fused": 3},
-        ("memory", "memory", 1): {"pq_decode": 1, "pq_lut_gather": 3},
-        ("auto", "pallas", 256): {"pq_fc": 3},
-        ("auto", "pallas", 1): {"pq_fc": 3},
+        ("auto", "auto", 256): LRNS,
+        ("auto", "auto", 1): LRNS,
+        ("memory", "memory", 256): ALEXNET_MEMORY_B256,
+        ("memory", "memory", 1): ALEXNET_MEMORY_B1,
+        ("auto", "pallas", 256): {**LRNS, "pq_fc": 3},
+        ("auto", "pallas", 1): {**LRNS, "pq_fc": 3},
     }
     probs, counts = {}, {}
     for (conv_mode, fc_mode, b), per_fwd in expect.items():
@@ -1925,9 +1933,9 @@ def phase_int8(spec, params, rparams, dev, peaks, gpu_name):
                               with_softmax=False, device=dev)
            for b in (256, 1)}
     del pb
-    expect = {("auto", 256): {}, ("auto", 1): {},
-              ("memory", 256): {"pq_fc_fused": 3},
-              ("memory", 1): {"pq_lut_gather": 3}}
+    expect = {("auto", 256): LRNS, ("auto", 1): LRNS,  # bf16 into the LRNs
+              ("memory", 256): {**LRNS, "pq_fc_fused": 3},
+              ("memory", 1): {**LRNS, "pq_lut_gather": 3}}
     counts: dict = {}
     failed = []  # every run is logged before a broken limit fails the phase
     for (fc_mode, b), per_fwd in expect.items():
@@ -2178,7 +2186,7 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
         counts["io alexnet classify"] = io_drive(
             f"alexnet classify_batch memory batch_hint=64 B={IO_BMPS}", clf,
             lambda: results.append(clf.classify_batch(paths)), 3,
-            {"pq_decode": 1, "pq_fc_fused": 3}, IO_BMPS)
+            ALEXNET_MEMORY_B256, IO_BMPS)
         got = torch.from_numpy(clf._probs(x_native))
         auto, conv_a, fc_a = prepare.prepare_params(
             spec, clf.raw_params, batch_hint=64, dtype=torch.bfloat16,
@@ -2209,7 +2217,7 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
         counts["io alexnet classify batch_hint=1"] = io_drive(
             "alexnet classify memory batch_hint=1 B=1", clf1,
             lambda: one.append(clf1.classify(paths[0])), 10,
-            {"pq_decode": 1, "pq_lut_gather": 3}, 1)
+            ALEXNET_MEMORY_B1, 1)
         if one[-1].class_ids[0] != last[0].class_ids[0]:
             raise AssertionError("io: batch_hint=1 top-1 differs")
         del clf1
@@ -2241,11 +2249,11 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
                                  "in-memory accuracy")
         batches = -(-IO_DATASET_ROWS // IO_BATCH)
         if counts["io alexnet evaluate_dataset"] != {
-                k: {"pq_decode": 1, "pq_fc_fused": 3}.get(k, 0) * batches
+                k: ALEXNET_MEMORY_B256.get(k, 0) * batches
                 for k in counts["io alexnet evaluate_dataset"]}:
             raise AssertionError("io: evaluate_dataset launched other "
                                  "kernels than pq_decode 1 + pq_fc_fused 3 "
-                                 "a batch")
+                                 "+ lrn_fused 2 a batch")
         del clf
 
         # step 5: the ResNet-50 family checkpoint, memory mode
@@ -2849,7 +2857,7 @@ def phase_serve(spec, params, rparams, geo, dev, peaks,
             f"{ {b: round(ms, 2) for b, ms in warm.items()} } "
             f"upload={mem._upload_dtype} buckets={mem._buckets}")
         mem_srv, mem_url = start_server(mem, pre, names)
-        per_batch = {"pq_decode": 1, "pq_fc_fused": 3}
+        per_batch = ALEXNET_MEMORY_B256
         npy = os.path.join(d, "alexnet.npy")
         ctx = multiprocessing.get_context("spawn")
         with ctx.Pool(1) as clients:
@@ -3323,9 +3331,10 @@ def phase_quantize(spec, params, dev, gpu_name: str,
         x_all = torch.from_numpy(synth.random_input(spec, QUANT_BATCH,
                                                     seed=6)).to(dev)
         fwd_probs = {}
-        for impl, b, per_fwd in (("auto", QUANT_BATCH, {}),
-                                 ("memory", QUANT_BATCH, {"pq_decode": 1}),
-                                 ("lut", QUANT_LUT_BATCH, {})):
+        for impl, b, per_fwd in (("auto", QUANT_BATCH, LRNS),
+                                 ("memory", QUANT_BATCH,
+                                  {**LRNS, "pq_decode": 1}),
+                                 ("lut", QUANT_LUT_BATCH, LRNS)):
             x = x_all[:b]
             t0 = time.perf_counter()
             prepared, conv_impls, fc_impls = prepare.prepare_params(
@@ -3529,12 +3538,10 @@ def phase_quantize(spec, params, dev, gpu_name: str,
             crop=spec.in_height))
         x64 = synth.random_input(spec, QUANT_BATCH, seed=3)
         probs = {}
-        for mode, b, per_fwd in (("memory", QUANT_BATCH,
-                                  {"pq_decode": 1, "pq_fc_fused": 3}),
-                                 ("memory", 1,
-                                  {"pq_decode": 1, "pq_lut_gather": 3}),
-                                 ("auto", QUANT_BATCH, {}),
-                                 ("auto", 1, {})):
+        for mode, b, per_fwd in (("memory", QUANT_BATCH, ALEXNET_MEMORY_B256),
+                                 ("memory", 1, ALEXNET_MEMORY_B1),
+                                 ("auto", QUANT_BATCH, LRNS),
+                                 ("auto", 1, LRNS)):
             t0 = time.perf_counter()
             clf = Classifier.from_checkpoint(
                 out, conv_impl=mode, fc_impl=mode, batch_hint=b,
@@ -3568,18 +3575,21 @@ def phase_quantize(spec, params, dev, gpu_name: str,
 
 
 PROFILE_RUNS = (  # (label, profile flags, the kernels that must launch)
-    ("alexnet auto B=256", ["--model", "alexnet", "--batch", "256"], ()),
-    ("alexnet auto B=1", ["--model", "alexnet", "--batch", "1"], ()),
+    ("alexnet auto B=256", ["--model", "alexnet", "--batch", "256"],
+     ("lrn_fused",)),
+    ("alexnet auto B=1", ["--model", "alexnet", "--batch", "1"],
+     ("lrn_fused",)),
     ("alexnet memory B=256", ["--model", "alexnet", "--batch", "256",
                               "--conv-impl", "memory", "--fc-impl",
-                              "memory"], ("pq_decode", "pq_fc_fused")),
+                              "memory"],
+     ("lrn_fused", "pq_decode", "pq_fc_fused")),
     ("alexnet memory B=1", ["--model", "alexnet", "--batch", "1",
                             "--conv-impl", "memory", "--fc-impl", "memory"],
-     ("pq_decode", "pq_lut_gather")),
+     ("lrn_fused", "pq_decode", "pq_lut_gather")),
     ("alexnet int8 B=256", ["--model", "alexnet", "--batch", "256",
-                            "--dtype", "int8"], ()),
+                            "--dtype", "int8"], ("lrn_fused",)),
     ("alexnet pallas B=256", ["--model", "alexnet", "--batch", "256",
-                              "--fc-impl", "pallas"], ("pq_fc",)),
+                              "--fc-impl", "pallas"], ("lrn_fused", "pq_fc")),
     ("resnet50 memory B=64", ["--model", "resnet50", "--batch", "64",
                               "--conv-impl", "memory", "--fc-impl",
                               "memory"], ("pq_conv_fused", "pq_decode")),
@@ -3744,7 +3754,7 @@ PARALLEL_TIMEOUT_S = 420  # the dry run's launcher stops its ranks at 390
 # part (b): the kernels each dry-run case must launch on every rank, by
 # the start of the case's name (qcnn_tpu_torch/parallel/dryrun.py)
 PARALLEL_CASE_KERNELS = {
-    "tiny": (),
+    "tiny": ("lrn_fused",),
     "dcp store": (),
     "fc6 row lutgather": ("pq_lut_gather",),
     "fc6 column lutgather": ("pq_lut_gather",),
@@ -3755,8 +3765,8 @@ PARALLEL_CASE_KERNELS = {
     "fc6 ring": ("pq_lut_gather",),
     "fc6 dp lutgather": ("pq_lut_gather",),
     "fc6 dp fgather": ("pq_fc_fused",),
-    "alexnet memory": ("pq_decode", "pq_fc_fused"),
-    "engine alexnet memory": ("pq_decode", "pq_fc_fused"),
+    "alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused"),
+    "engine alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused"),
     "resnet50 memory": ("pq_conv_fused", "pq_decode"),
     "vit_b16 memory pipeline": ("pq_decode",),
 }
@@ -3797,8 +3807,7 @@ def parallel_world_one(spec, params, dev, gpu_name: str, counts: dict
     from qcnn_tpu_torch.serve.engine import BatchingEngine, EngineConfig
 
     x_all = torch.from_numpy(synth.random_input(spec, 256, seed=1)).to(dev)
-    expect = {b: ({"pq_decode": 1, "pq_fc_fused": 3} if b > 2 else
-                  {"pq_decode": 1, "pq_lut_gather": 3})
+    expect = {b: ALEXNET_MEMORY_B256 if b > 2 else ALEXNET_MEMORY_B1
               for b in PARALLEL_BATCHES}
     with tempfile.TemporaryDirectory() as tmp:
         init_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0)
@@ -3883,7 +3892,7 @@ def parallel_world_one(spec, params, dev, gpu_name: str, counts: dict
             run_counts = cuda_ops.launches()
             batches = eng.stats["batches"]
             for name, n in run_counts.items():
-                want_n = {"pq_decode": 1, "pq_fc_fused": 3}.get(name, 0)
+                want_n = ALEXNET_MEMORY_B256.get(name, 0)
                 if n != want_n * batches:
                     raise AssertionError(
                         f"parallel engine ws=1: {name} launched {n} times "
@@ -4075,8 +4084,8 @@ def a13_store(spec, params, rparams, d: str, dev) -> dict:
 
     # the classifiers of both copies, memory mode: counted, the same bits
     x = synth.random_input(spec, A13_STORE_BATCH, seed=1)
-    for b, per_call in ((A13_STORE_BATCH, {"pq_decode": 1, "pq_fc_fused": 3}),
-                        (1, {"pq_decode": 1, "pq_lut_gather": 3})):
+    for b, per_call in ((A13_STORE_BATCH, ALEXNET_MEMORY_B256),
+                        (1, ALEXNET_MEMORY_B1)):
         clfs = {store: Classifier.from_checkpoint(
             paths[("alexnet", store)], conv_impl="memory", fc_impl="memory",
             batch_hint=b, device=dev) for store in ("npz", "dcp")}
@@ -4109,8 +4118,10 @@ def a13_store(spec, params, rparams, d: str, dev) -> dict:
 def a13_lanepad(spec, params, dev, gpu_name: str, smi: str) -> None:
     """Phase 15 (b): AlexNet decoded at load, unpadded and lane-padded
     (models/lanepad.py), through phase 5's loops and profile; no port kernel
-    may launch. Logs ms/step in turns, device-busy ms/step and the profile
-    rows of the padded block (conv1 .. conv2) of both."""
+    may launch but lrn_fused, twice a forward unpadded and once padded (the
+    padded LRN1 has a channel_map and takes the band form). Logs ms/step in
+    turns, device-busy ms/step and the profile rows of the padded block
+    (conv1 .. conv2) of both."""
     import dataclasses
 
     from qcnn_tpu_torch.core import ConvSpec
@@ -4150,7 +4161,9 @@ def a13_lanepad(spec, params, dev, gpu_name: str, smi: str) -> None:
             fwds[name] = fwd
             label = f"a13 lanepad alexnet {dtype} auto {name} B={b}"
             probs[name], _ = drive(label, fwd, b, spec.num_classes,
-                                   steps=10 if b > 1 else 50, per_fwd={},
+                                   steps=10 if b > 1 else 50,
+                                   per_fwd={"lrn_fused": 2 if name ==
+                                            "unpadded" else 1},
                                    gpu_name=gpu_name,
                                    resident=tensor_bytes(p), prep_s=prep_s,
                                    prof_steps=0)
@@ -4255,7 +4268,7 @@ def a13_reference(spec, d: str, dev, smi: str) -> dict:
     counts = {"a13 reference layout": io_drive(
         f"a13 reference layout classify_batch memory B={A13_BMPS}", clf,
         lambda: clf.classify_batch(bmps), 3,
-        {"pq_decode": 1, "pq_fc_fused": 3}, A13_BMPS)}
+        ALEXNET_MEMORY_B256, A13_BMPS)}
     x = clf.pre.load_batch(bmps)
     got = torch.from_numpy(clf._probs(x))
     auto, conv_a, fc_a = prepare.prepare_params(
@@ -4644,7 +4657,10 @@ def main() -> int:
                         f"quantize alexnet memory B={QUANT_BATCH}",
                         f"a13 alexnet dcp B={A13_STORE_BATCH}",
                         "a13 reference layout"),
-        "lrn_fused": ("lrn_fused entry point",),
+        "lrn_fused": ("lrn_fused entry point", "alexnet auto",
+                      "alexnet memory", "alexnet pallas",
+                      "alexnet int8 memory", "io alexnet classify",
+                      "serve alexnet memory", "a13 reference layout"),
         "pq_conv_fused": ("resnet50 memory", "io resnet50 family",
                           "serve resnet50 memory",
                           f"quantize {QUANT_FAMILY} memory",

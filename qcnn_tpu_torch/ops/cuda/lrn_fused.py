@@ -10,9 +10,9 @@ channel edges, ``sq`` = x * x rounded to x's dtype, float32 window sums and
 the result in x's dtype. All three JAX windows ("dot", "roll", "shift")
 square in x's dtype: the "shift" kernel squares before it widens
 (``(x * x).astype(jnp.float32)``, lrn_fused.py:81), although its docstring
-says it squares in float32 (see ROADMAP.md B2). They differ only in the order
-of their float32 sums, so one entry (``csrc/lrn_fused.cu``) serves all
-three names, which are still validated. It launches one of two kernels,
+says it squares in float32. They differ only in the order of their
+float32 sums, so one entry (``csrc/lrn_fused.cu``) serves all three names,
+which are still validated. It launches one of two kernels,
 picked from the shape by ``plan`` (``_plan.plan_lrn``): the register kernel
 (``KERNEL``; window radius 1 to 3, rows that are whole 16-byte vectors: the
 window stays in registers and the neighbours come from the adjacent lanes)
@@ -21,8 +21,10 @@ each with its own launch count. Both add the window's squares in channel
 order; :func:`lrn_window_plain` repeats that order in PyTorch
 (``chip_smoke.py`` holds both kernels to it bit for bit).
 
-As in the JAX package, the kernel is an entry point of its own and is wired
-into nothing: ``ops.misc.lrn`` stays plain PyTorch. Its plain version is
+``ops.misc.lrn(impl="auto")`` launches it for an odd window over a bf16 or
+float32 CUDA tensor without a channel_map (``misc.lrn_route``), so every
+LRN of the AlexNet family's forwards on the card runs here; the JAX
+package's forwards never reach its kernel. Its plain version is
 ``ops.misc.lrn(impl="band")``, which squares in x's dtype and sums in
 float32; it runs on a CPU tensor, and on a CUDA tensor the kernel launches
 or the call raises.

@@ -76,7 +76,11 @@ def lrn(
     impl: ``"jnp"`` sums ``size`` shifted slices of the f32 square;
     ``"band"`` squares in the input dtype and materialises the window sum
     as a banded ``c x c`` product in ``sum_dtype`` (f32 by default).
-    ``"auto"`` is ``"jnp"``: the JAX package picks ``"band"`` only on a TPU.
+    ``"auto"`` takes the form :func:`lrn_route` picks: on a bf16 or f32
+    CUDA tensor the ``lrn_fused`` kernel (``ops/cuda/lrn_fused.py``; the
+    ``"band"`` function in one pass, its window summed in f32 whatever
+    ``sum_dtype``), else ``"jnp"``. The JAX package's ``auto`` likewise
+    squares in the input dtype on its accelerator (``"band"`` on a TPU).
     channel_map (lane-padded layouts, -1 = padding) forces ``"band"``.
     """
     if size % 2 == 0:
@@ -87,7 +91,12 @@ def lrn(
     if channel_map is not None:
         impl = "band"
     if impl == "auto":
-        impl = "jnp"
+        impl = lrn_route(x.device, x.dtype, size)
+        if impl == "kernel":
+            # imported here: ops/cuda/lrn_fused.py imports this module
+            from qcnn_tpu_torch.ops.cuda.lrn_fused import lrn_fused
+
+            return lrn_fused(x, size=size, alpha=alpha, beta=beta, k=k)
     if impl == "band":
         if channel_map is not None:
             m = torch.as_tensor(channel_map, device=x.device)
@@ -116,6 +125,16 @@ def lrn(
         sq_sum = sq_sum + padded[..., off:off + c]
     scale = k + (alpha / size) * sq_sum
     return (xf * _neg_pow(scale, beta)).to(x.dtype)
+
+
+def lrn_route(device: torch.device, dtype: torch.dtype, size: int) -> str:
+    """The form ``lrn(impl="auto")`` takes without a channel_map:
+    ``"kernel"`` (``lrn_fused``) for an odd window over a bf16 or f32 CUDA
+    tensor, else ``"jnp"`` (the CPU, other dtypes)."""
+    if (device.type == "cuda" and dtype in (torch.bfloat16, torch.float32)
+            and size % 2):
+        return "kernel"
+    return "jnp"
 
 
 def _neg_pow(scale: torch.Tensor, beta: float) -> torch.Tensor:
