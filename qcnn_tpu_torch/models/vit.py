@@ -49,6 +49,7 @@ from qcnn_tpu_torch.ops import fc as fc_ops
 from qcnn_tpu_torch.quantizer.kmeans import split
 from qcnn_tpu_torch.quantizer.opq import inverse_permutation
 from qcnn_tpu_torch.quantizer.pq import quantize_fc_layer
+from qcnn_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,30 +216,36 @@ def forward(params: dict, x, *, spec: ViTSpec, compute_dtype=None,
       activations: bf16 when they are bf16, float32 otherwise.
     device: None means "cuda"; pass "cpu" to run the plain versions. The
       params must already be there (``prepare_params(device=...)``)."""
-    device = resolve_device(device)
-    x = torch.as_tensor(x, device=device)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-    if attn_logits_dtype is None:
-        attn_logits_dtype = (torch.bfloat16 if x.dtype == torch.bfloat16
-                             else torch.float32)
-    cast = _make_cast(compute_dtype)
-    x = _run_embed(x, params, spec, cast)
-    for i in range(spec.depth):
-        x = _run_block(x, params[f"blk{i}"], spec, cast, attn_logits_dtype)
-    return _run_head(x, params, with_softmax)
+    with span("forward"):
+        device = resolve_device(device)
+        x = torch.as_tensor(x, device=device)
+        if attn_logits_dtype is None:
+            attn_logits_dtype = (
+                torch.bfloat16 if (compute_dtype or x.dtype) == torch.bfloat16
+                else torch.float32)
+        cast = _make_cast(compute_dtype)
+        x = _run_embed(x, params, spec, cast)
+        for i in range(spec.depth):
+            x = _run_block(x, params[f"blk{i}"], spec, cast,
+                           attn_logits_dtype, f"blk{i}")
+        return _run_head(x, params, with_softmax)
 
 
 def _run_embed(x, params, spec, cast):
-    b, h, w, c = x.shape
-    p = spec.patch
-    # patchify: (B, H/p, p, W/p, p, C) -> (B, N, p*p*C), (row, col, ch) order
-    x = x.reshape(b, h // p, p, w // p, p, c)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, spec.num_patches, -1)
-    x = cast(_proj(x, params["patch_embed"], out_dtype=cast.dtype))
-    cls = params["cls_token"].to(x.dtype).expand(b, 1, spec.dim)
-    x = torch.cat([cls, x], dim=1)
-    return x + params["pos_embed"].to(x.dtype)
+    """The input cast to the activation dtype, the patch embedding, the
+    class token and the position embedding."""
+    with span("embed"):
+        x = cast(x)
+        b, h, w, c = x.shape
+        p = spec.patch
+        # patchify: (B, H/p, p, W/p, p, C) -> (B, N, p*p*C), (row, col, ch)
+        # order
+        x = x.reshape(b, h // p, p, w // p, p, c)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, spec.num_patches, -1)
+        x = cast(_proj(x, params["patch_embed"], out_dtype=cast.dtype))
+        cls = params["cls_token"].to(x.dtype).expand(b, 1, spec.dim)
+        x = torch.cat([cls, x], dim=1)
+        return x + params["pos_embed"].to(x.dtype)
 
 
 def _block_inputs(x, blk, od) -> dict:
@@ -263,10 +270,11 @@ def _block_routes(inputs: dict, blk) -> dict:
             if "codebooks" in blk[name]}
 
 
-def _run_block(x, blk, spec, cast, attn_logits_dtype):
+def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
     """One transformer block (shared by forward and forward_segments). The
     projections that decode their weight in the step do so in one
-    ``pq_decode`` launch at the head of the block."""
+    ``pq_decode`` launch at the head of the block. key: the block's name
+    ("blk{i}"), which its spans carry."""
     b = x.shape[0]
     nh = spec.heads
     hd = spec.dim // nh
@@ -281,26 +289,39 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype):
                 f"{name}: input {tuple(v.shape)} {v.dtype}, but its route "
                 f"was decided for (rows, Cin, dtype) {inputs[name]}")
         impl = routes[name][1] if name in routes else None
-        return _proj(v, blk[name], out_dtype=od, impl=impl,
-                     decoded=decoded.get(name))
+        with span("fc", key, name):
+            return _proj(v, blk[name], out_dtype=od, impl=impl,
+                         decoded=decoded.get(name))
 
-    y = _layernorm(x, blk["ln1"])
+    with span("layernorm", key, "ln1"):
+        y = _layernorm(x, blk["ln1"])
     qkv = proj(y, "qkv")  # (B, N, 3D)
-    q, k, v = (t.reshape(b, -1, nh, hd) for t in qkv.chunk(3, dim=-1))
-    o = _masked_attention(q, k, v, 0, attn_logits_dtype, out_dtype=od)
-    o = cast(o.reshape(b, -1, spec.dim))
-    x = x + cast(proj(o, "out"))
-    y = _layernorm(x, blk["ln2"])
+    with span("attention", key):
+        q, k, v = (t.reshape(b, -1, nh, hd) for t in qkv.chunk(3, dim=-1))
+        o = _masked_attention(q, k, v, 0, attn_logits_dtype, out_dtype=od)
+        o = cast(o.reshape(b, -1, spec.dim))
+    o = proj(o, "out")
+    with span("residual", key, "attn"):
+        x = x + o
+    with span("layernorm", key, "ln2"):
+        y = _layernorm(x, blk["ln2"])
+    y = proj(y, "mlp1")
     # exact (erf) GELU, the timm/torch semantics
-    y = cast(F.gelu(proj(y, "mlp1")))
-    return x + cast(proj(y, "mlp2"))
+    with span("gelu", key):
+        y = cast(F.gelu(y))
+    y = proj(y, "mlp2")
+    with span("residual", key, "mlp"):
+        return x + y
 
 
 def _run_head(x, params, with_softmax: bool):
-    x = _layernorm(x, params["ln_final"])
-    logits = _proj(x[:, 0], params["head"]).float()
+    with span("layernorm", "final"):
+        x = _layernorm(x, params["ln_final"])
+    with span("fc", "head"):
+        logits = _proj(x[:, 0], params["head"]).float()
     if with_softmax:
-        logits = torch.softmax(logits, dim=-1)
+        with span("softmax", "head"):
+            logits = torch.softmax(logits, dim=-1)
     return logits
 
 
@@ -321,17 +342,12 @@ def forward_segments(spec: ViTSpec, *, compute_dtype=None,
 
     cast = _make_cast(compute_dtype)
 
-    def embed(x, p):
-        if compute_dtype is not None:
-            x = x.to(compute_dtype)
-        return _run_embed(x, p, spec, cast)
-
-    segs = [("embed", embed)]
+    segs = [("embed", lambda x, p: _run_embed(x, p, spec, cast))]
     for i in range(spec.depth):
         segs.append((
             f"blk{i}",
             lambda x, p, i=i: _run_block(x, p[f"blk{i}"], spec, cast,
-                                         _attn_dtype(x)),
+                                         _attn_dtype(x), f"blk{i}"),
         ))
     segs.append(("head", lambda x, p: _run_head(x, p, with_softmax)))
     return segs

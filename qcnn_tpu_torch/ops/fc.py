@@ -31,7 +31,7 @@ from qcnn_tpu_torch.ops.cuda import (
     pq_fc_fused,
     pq_lut_gather,
 )
-from qcnn_tpu_torch.utils.spans import span
+from qcnn_tpu_torch.utils.spans import NO_SPAN, span
 
 # the JAX Pallas gather's one-vreg table, kept on the names whose JAX entry
 # points raise past it (qcnn_tpu/ops/pallas/pq_decode.py:88-92)
@@ -279,9 +279,10 @@ def instep_decodes(fcs: dict) -> dict:
     dict."""
     keys = [key for key, (_, impl, _) in fcs.items()
             if impl in ("indecode", "gdecode")]
-    rows = pq_decode.decode_rows_many(
-        [(fcs[key][0]["codebooks"], fcs[key][0]["assignments"], fcs[key][2])
-         for key in keys])
+    with span("decode") if keys else NO_SPAN:
+        rows = pq_decode.decode_rows_many(
+            [(fcs[key][0]["codebooks"], fcs[key][0]["assignments"],
+              fcs[key][2]) for key in keys])
     return dict(zip(keys, rows))
 
 

@@ -5,9 +5,16 @@
 (``qcnn.conv:<layer>``, ``qcnn.fc:<layer>``), the passes after a product
 that add its bias or cast its dtype (``qcnn.epilogue``), and the plain
 layers (``qcnn.lrn:<layer>``, ``qcnn.pool:<layer>``, ``qcnn.relu:<layer>``,
-``qcnn.softmax:<layer>``, ``qcnn.residual:<block>``). A profiler that is
-running records each as a range of the host's timeline; a kernel belongs
-to the innermost range around its launch.
+``qcnn.softmax:<layer>``, ``qcnn.residual:<block>``). The ViT forward adds
+its input cast and embeddings (``qcnn.embed``), its LayerNorms
+(``qcnn.layernorm:blk<i>.ln1``, ``.ln2``, ``qcnn.layernorm:final``), each
+block's attention from the logits through the second product and its
+casts (``qcnn.attention:blk<i>``), its GELU (``qcnn.gelu:blk<i>``) and two
+residual adds (``qcnn.residual:blk<i>.attn``, ``.mlp``); its projections
+are ``qcnn.fc:blk<i>.qkv``, ``.out``, ``.mlp1``, ``.mlp2`` and
+``qcnn.fc:head``. A profiler that is running records each as a range of
+the host's timeline; a kernel belongs to the innermost range around its
+launch.
 
 A range is torch's ``RecordFunction`` through ``_RecordFunctionFast``, at
 about 2 us a range on the host where ``torch.profiler.record_function``
