@@ -135,18 +135,27 @@ Phases, each fatal on failure (any exception exits non-zero):
 10. the ViT family, full width (224x224, 1000 classes), synthetic PQ params
    (seed 0), through build_family_forward; each run through the loops,
    profile and launch checks of phase 5, with resident and peak bytes:
+   first attention_fused (in a full run with phases 3-4, where the other
+   kernels are timed), held to its plain version (the materialized chain)
+   at the ViT-L/16 benchmark cell's shape (B=128, N=577, H=16) and
+   ViT-B/16's (B=32, N=197, H=12), q/k/v read in place from one qkv
+   tensor, and timed beside the chain and F.scaled_dot_product_attention
+   (a yardstick only); then every bf16 attention launches attention_fused,
+   one a block:
    A: ViT-B/16 decode at load, bf16, B=32 (serving_defaults' max_batch)
-      and B=1: no kernel;
+      and B=1: attention_fused 12 a forward and no other kernel;
    B: ViT-B/16 memory mode, B=32 and B=1: pq_decode 14 a forward (the
       patch embedding, one grouped launch a block for its four
-      projections, the head) and no other kernel;
-   C: ViT-L/16 memory mode, B=1: pq_decode 26 and pq_fc_fused 48 (mlp1
-      and mlp2 of every block: 197 rows, under fc_memory_impl's 1024);
-   D: ViT-L/16 decode at load, B=1: no kernel;
-   E: ViT-B/16 int8 (dynamic amax, bf16 activations), B=32: no kernel;
+      projections, the head), attention_fused 12;
+   C: ViT-L/16 memory mode, B=1: pq_decode 26, pq_fc_fused 48 (mlp1
+      and mlp2 of every block: 197 rows, under fc_memory_impl's 1024) and
+      attention_fused 24;
+   D: ViT-L/16 decode at load, B=1: attention_fused 24;
+   E: ViT-B/16 int8 (dynamic amax, bf16 activations), B=32:
+      attention_fused 12;
    F: save_family_checkpoint of ViT-B/16 + TorchPreprocessor.imagenet(),
       FamilyClassifier.from_checkpoint(memory=True) on 16 BMPs: pq_decode
-      14 a call, held to memory=False.
+      14 and attention_fused 12 a call, held to memory=False.
 
 11. serving (serve/, cli.py), at full width from synthetic params (seed 0)
    and files the port's own writers put in a temporary directory (phase
@@ -2289,15 +2298,82 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
     return counts
 
 
-# phase 10: (run, model, mode, batches, launches a forward); decode at load
-# and int8 run no kernel of the package
+# phase 10: (run, model, mode, batches, launches a forward); every run's
+# activations are bf16, so each block's attention is one attention_fused
 VIT_RUNS = (
-    ("A", "vit_b16", "decode", (32, 1), {}),
-    ("B", "vit_b16", "memory", (32, 1), {"pq_decode": 14}),
-    ("E", "vit_b16", "int8", (32,), {}),
-    ("C", "vit_l16", "memory", (1,), {"pq_decode": 26, "pq_fc_fused": 48}),
-    ("D", "vit_l16", "decode", (1,), {}),
+    ("A", "vit_b16", "decode", (32, 1), {"attention_fused": 12}),
+    ("B", "vit_b16", "memory", (32, 1),
+     {"pq_decode": 14, "attention_fused": 12}),
+    ("E", "vit_b16", "int8", (32,), {"attention_fused": 12}),
+    ("C", "vit_l16", "memory", (1,),
+     {"pq_decode": 26, "pq_fc_fused": 48, "attention_fused": 24}),
+    ("D", "vit_l16", "decode", (1,), {"attention_fused": 24}),
 )
+# attention_fused's shapes (B, N, H): the ViT-L/16 cell's (its row in the
+# kernel table) and ViT-B/16's at serving_defaults' max_batch
+ATTENTION_SHAPES = ((128, 577, 16), (32, 197, 12))
+
+
+def phase_attention(dev, flush, peaks) -> dict:
+    """attention_fused against its plain version (the materialized chain,
+    both on the card) at ATTENTION_SHAPES, bf16, on q/k/v read in place
+    from one (B, N, 3 H 64) tensor; then timed beside the chain and
+    F.scaled_dot_product_attention, the library's attention, which the port
+    never calls (it does not round the logits to bf16). Bound: one read of
+    q, k, v and one write of o, or the two products at the bf16 peak. The
+    limit, 1/32 of the largest |o|: both round the logits to bf16 from
+    float32 sums in different orders, and the kernel rounds each
+    probability before the division by its row's sum (the CPU tests' note).
+    Returns {"attention_fused": the row of the first shape}."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.ops.cuda import attention_fused as af
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = {}
+    for b, n, h in ATTENTION_SHAPES:
+        qkv = torch.randn((b, n, 3 * h * 64), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = (t.reshape(b, n, h, 64) for t in qkv.chunk(3, dim=-1))
+
+        def kernel():
+            return af.attention_fused(q, k, v, scale=0.125,
+                                      out_dtype=torch.bfloat16)
+
+        def plain():
+            return af.attention_plain(q, k, v, scale=0.125,
+                                      out_dtype=torch.bfloat16)
+
+        got, want = kernel().float(), plain().float()
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        log(f"check attention_fused (B,N,H,hd)=({b},{n},{h},64) bf16 "
+            f"max_abs_err={err:.3e} max|o|={top:.3e} (limit 1/32 of it)")
+        if not err <= top / 32:
+            raise AssertionError(f"attention_fused ({b},{n},{h}): "
+                                 f"max_abs_err {err} > {top} / 32")
+        del got, want
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = time_ms(kernel, flush)
+        plain_ms = time_ms(plain, flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                      flush)
+        nbytes = 4 * b * n * h * 64 * 2
+        ops = 4 * b * h * n * n * 64
+        b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
+        log(f"time attention_fused (B,N,H,hd)=({b},{n},{h},64) bf16 "
+            f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib:.5f}"
+            f" bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, "
+            f"operations {ops}) share={b_ms / ms:.3f} "
+            f"tflops={ops / ms / 1e9:.1f}")
+        row = new_row()
+        row["max_abs_err"] = err
+        add_timing(row, 1, ms, plain_ms, lib, b_ms, nbytes, ops,
+                   peaks["bf16"], peaks)
+        rows.setdefault("attention_fused", close_row(row))
+        del qkv, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_vit(dev, gpu_name, vparams) -> dict:
@@ -2341,9 +2417,7 @@ def phase_vit(dev, gpu_name, vparams) -> dict:
                 logits[run] = vit.forward(prepared, x, spec=spec,
                                           compute_dtype=act,
                                           device=dev).float()
-            if per_fwd:
-                add_counts(counts.setdefault(f"{model} {mode}", {}),
-                           run_counts)
+            add_counts(counts.setdefault(f"{model} {mode}", {}), run_counts)
         del prepared, fwd_fn
         torch.cuda.empty_cache()
 
@@ -2393,7 +2467,7 @@ def phase_vit(dev, gpu_name, vparams) -> dict:
         label = f"vit_b16 family classify_batch memory B={IO_FAMILY_BMPS}"
         counts["io vit_b16 family"] = io_drive(
             f"{label} (run F)", fam, lambda: fam.classify_batch(paths), 3,
-            {"pq_decode": 14}, IO_FAMILY_BMPS)
+            {"pq_decode": 14, "attention_fused": 12}, IO_FAMILY_BMPS)
         x_in = fam.pre.load_batch(paths)
         profile_steps(lambda: fam._probs(x_in), 3, f"{label} forward (run F)")
         got = torch.from_numpy(fam._probs(x_in))
@@ -3768,7 +3842,7 @@ PARALLEL_CASE_KERNELS = {
     "alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused"),
     "engine alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused"),
     "resnet50 memory": ("pq_conv_fused", "pq_decode"),
-    "vit_b16 memory pipeline": ("pq_decode",),
+    "vit_b16 memory pipeline": ("pq_decode", "attention_fused"),
 }
 
 
@@ -4554,8 +4628,10 @@ def main() -> int:
     log(f"vit synthetic params seconds={time.perf_counter() - t0:.2f}")
     check_f32_vit_block(dev, vparams)
     if args.only_vit:
+        rows = phase_attention(dev, flush, peaks)
         counts = phase_vit(dev, gpu_name, vparams)
-        log(json.dumps({"partial": "vit only", "launches": counts}))
+        log(json.dumps({"partial": "vit only", "rows": rows,
+                        "launches": counts}))
         return 0
     if args.only_lut_lrn:
         rows = phase_kernels(geo, spec, dev, flush, peaks)
@@ -4593,6 +4669,7 @@ def main() -> int:
         spec, geo, dev, flush, peaks)
     rows |= new_rows
     add_counts(general_counts, more_general)
+    rows |= phase_attention(dev, flush, peaks)
     del flush
 
     # phases 5-7: the paths, end to end
@@ -4666,6 +4743,9 @@ def main() -> int:
                           f"quantize {QUANT_FAMILY} memory",
                           "a13 resnet50 dcp"),
         "pq_fc": ("alexnet pallas",),
+        "attention_fused": ("vit_b16 decode", "vit_b16 memory",
+                            "vit_b16 int8", "vit_l16 memory",
+                            "vit_l16 decode", "io vit_b16 family"),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),
         "pq_lut_gather_general": ("general entry points",),
@@ -4693,6 +4773,9 @@ def main() -> int:
                           "qcnn_tpu/ops/pallas/pq_conv_fused.py:93"),
         "pq_fc": ("qcnn_tpu_torch/csrc/pq_fc.cu",
                   "qcnn_tpu/ops/pallas/pq_fc.py:61"),
+        "attention_fused": ("qcnn_tpu_torch/csrc/attention_fused.cu",
+                            "none: XLA's attention, qcnn_tpu/models/vit.py "
+                            "_masked_attention"),
         "pq_fc_fused_general": (
             "qcnn_tpu_torch/csrc/pq_fc_fused_general.cu",
             "qcnn_tpu/ops/pallas/pq_fc_fused.py:125"),

@@ -8,11 +8,15 @@ library applies unchanged. Parameters are a nested dict: "patch_embed",
 "ln1", "qkv", "out", "ln2", "mlp1", "mlp2"), "ln_final" and "head".
 Activations are (B, tokens, D); the input image is NHWC.
 
-Attention has no weights. It runs as two batched matmuls in the JAX
-package's numerics (:func:`_masked_attention`): float32 sums, the logits
-divided by sqrt(hd) in float32 and materialized in ``logits_dtype``, the
-softmax in float32. ``F.scaled_dot_product_attention`` never materializes
-the logits in bf16, so it would compute another function.
+Attention has no weights. It computes the JAX package's numerics
+(:func:`_masked_attention`): float32 sums, the logits divided by sqrt(hd)
+in float32 and rounded to ``logits_dtype``, the softmax in float32. On the
+CPU, and on the card outside :func:`attention_route`'s kernel route, it
+runs as two batched matmuls that materialize the logits; on a bf16 CUDA
+tensor with bf16 logits and a head dimension of 64 it is one launch of the
+``attention_fused`` kernel (``ops/cuda/attention_fused.py``), which keeps
+the logits in registers. ``F.scaled_dot_product_attention`` never rounds
+the logits to bf16, so it would compute another function.
 
 In memory mode (``prepare_params(memory=True)``) each projection is routed
 by ``common.fc_memory_impl`` on its rows (B x tokens), as the JAX package
@@ -46,6 +50,7 @@ from qcnn_tpu_torch.models.prepare import (
     dense_layer,
 )
 from qcnn_tpu_torch.ops import fc as fc_ops
+from qcnn_tpu_torch.ops.cuda import attention_fused as attn_kernel
 from qcnn_tpu_torch.quantizer.kmeans import split
 from qcnn_tpu_torch.quantizer.opq import inverse_permutation
 from qcnn_tpu_torch.quantizer.pq import quantize_fc_layer
@@ -158,6 +163,19 @@ def _logits(q, k_t, hd: int, logits_dtype):
             / math.sqrt(hd)).to(logits_dtype)
 
 
+def attention_route(device: torch.device, dtype: torch.dtype,
+                    logits_dtype: torch.dtype, hd: int) -> str:
+    """The form :func:`_masked_attention` takes: ``"kernel"``
+    (``attention_fused``) for bf16 q/k/v on a CUDA device with bf16 logits
+    and a head dimension the kernel is compiled for, else ``"plain"`` (the
+    materialized chain: the CPU, float32 logits, other dtypes)."""
+    if (device.type == "cuda" and dtype == torch.bfloat16
+            and logits_dtype == torch.bfloat16
+            and hd in attn_kernel.HEAD_DIMS):
+        return "kernel"
+    return "plain"
+
+
 def _masked_attention(q, k, v, n_pad: int = 0, logits_dtype=torch.float32,
                       out_dtype=None):
     """(B, N, H, hd) q/k/v -> (B, N, H, hd) in ``out_dtype`` (float32 when
@@ -167,8 +185,13 @@ def _masked_attention(q, k, v, n_pad: int = 0, logits_dtype=torch.float32,
     of float32 sums.
 
     logits_dtype: the dtype the (B, H, N, N) logits are materialized in;
-    the softmax takes them in float32 and emits v's dtype."""
+    the softmax takes them in float32 and emits v's dtype. On the kernel
+    route (:func:`attention_route`) nothing is materialized or padded: the
+    kernel reads the N real keys only."""
     hd = q.shape[-1]
+    if attention_route(q.device, q.dtype, logits_dtype, hd) == "kernel":
+        return attn_kernel.attention_fused(q, k, v, scale=1 / math.sqrt(hd),
+                                           out_dtype=out_dtype)
     if n_pad:
         k = F.pad(k, (0, 0, 0, 0, 0, n_pad))
         v = F.pad(v, (0, 0, 0, 0, 0, n_pad))

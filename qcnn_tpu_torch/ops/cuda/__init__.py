@@ -2,6 +2,7 @@
 each with its plain PyTorch version and a count of launches."""
 
 from qcnn_tpu_torch.ops.cuda import (
+    attention_fused,
     lrn_fused,
     pq_conv_fused,
     pq_decode,
@@ -17,6 +18,7 @@ KERNELS = {
     "lrn_fused": lrn_fused.KERNEL,
     "pq_conv_fused": pq_conv_fused.KERNEL,
     "pq_fc": pq_fc.KERNEL,
+    "attention_fused": attention_fused.KERNEL,
     # the general kernels, for the shapes that the two wgmma kernels, the
     # staged gather and the register-window LRN do not take
     "pq_fc_fused_general": pq_fc_fused.GENERAL,

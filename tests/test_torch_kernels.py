@@ -23,6 +23,7 @@ from qcnn_tpu_torch.ops import fc as tfc
 from qcnn_tpu_torch.ops import lut as tlut
 from qcnn_tpu_torch.ops.cuda import (
     KERNELS,
+    attention_fused,
     launches,
     lrn_fused,
     pq_conv_fused,
@@ -227,9 +228,14 @@ def test_plain_versions_do_not_count_launches(rng):
               "bias": torch.zeros(8)}
     pq_conv_fused.pq_conv_fused(torch.zeros((1, 5, 5, 64)), conv_p, stride=1,
                                 pad=1)
+    qkv = T(rng.standard_normal((2, 5, 3 * 64))).to(torch.bfloat16)
+    attention_fused.attention_fused(*(t.reshape(2, 5, 1, 64)
+                                      for t in qkv.chunk(3, dim=-1)),
+                                    scale=0.125)
     assert launches() == before
     assert set(KERNELS) == {"pq_decode", "pq_lut_gather", "pq_fc_fused",
                             "lrn_fused", "pq_conv_fused", "pq_fc",
+                            "attention_fused",
                             "pq_fc_fused_general", "pq_conv_fused_general",
                             "pq_lut_gather_general", "lrn_fused_general"}
 

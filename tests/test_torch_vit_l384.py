@@ -281,7 +281,8 @@ def _cell_forward(card):
 @pytest.mark.card
 def test_cell_forward_launches_on_the_card(card):
     """26 ``pq_decode`` launches a forward (one grouped decode a block, the
-    patch embedding's, the head's) and no fused decode-GEMM."""
+    patch embedding's, the head's), one ``attention_fused`` a block and no
+    fused decode-GEMM."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     fwd, x = _cell_forward(card)
@@ -293,7 +294,7 @@ def test_cell_forward_launches_on_the_card(card):
     after = cuda_ops.launches()
     got = {k: after[k] - before.get(k, 0) for k in after
            if after[k] != before.get(k, 0)}
-    assert got == {"pq_decode": 26}, got
+    assert got == {"pq_decode": 26, "attention_fused": 24}, got
     assert probs.shape == (128, 1000) and torch.isfinite(probs).all()
 
 
@@ -322,3 +323,5 @@ def test_every_kernel_of_a_traced_step_lies_in_a_span(card):
     assert {"attention", "layernorm", "fc", "epilogue", "gelu", "residual",
             "decode", "embed", "softmax"} <= set(got["kinds"])
     assert got["kinds"]["decode"]["kernels"] == 24
+    # one attention_fused launch a block, and no other kernel there
+    assert got["kinds"]["attention"]["kernels"] == 24
