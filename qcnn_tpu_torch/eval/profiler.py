@@ -50,7 +50,7 @@ from typing import Optional, Sequence
 import torch
 
 from qcnn_tpu_torch._device import resolve_device
-from qcnn_tpu_torch.core import ConvSpec, FCSpec, ModelSpec, is_pq
+from qcnn_tpu_torch.core import ConvSpec, ModelSpec, is_pq
 from qcnn_tpu_torch.models import network
 from qcnn_tpu_torch.ops import lut as lut_ops
 from qcnn_tpu_torch.ops.conv import instep_decodes, memory_fused_route
@@ -163,13 +163,11 @@ def profile_layers(
     device: None means "cuda"; pass "cpu" to time the plain versions with
       the host's clock. The params go there once, before any timing."""
     device = resolve_device(device)
-    if conv_impls is None or fc_impls is None:
-        # dtype matters: the fc 'memory' rule keeps f32 runs on the exact
-        # in-step decode; the profiler times what forward() executes
-        conv_impls, fc_impls = network.resolve_strategy(
-            spec, params, x.shape[0], conv_impl, fc_impl,
-            dtype=(compute_dtype if compute_dtype is not None
-                   else torch.float32))
+    # dtype matters: the fc 'memory' rule keeps f32 runs on the exact
+    # in-step decode; the profiler times what forward() executes
+    plan = network.layer_plan(spec, params, x.shape[0], conv_impl=conv_impl,
+                              fc_impl=fc_impl, dtype=compute_dtype,
+                              conv_impls=conv_impls, fc_impls=fc_impls)
     params = [network._to_device(p, device) for p in params]
     x = torch.as_tensor(x, device=device)
     if compute_dtype is not None:
@@ -180,18 +178,9 @@ def profile_layers(
         return time_ms(fn, flush, reps) / 1e3
 
     profiles: list[LayerProfile] = []
-    first_fc_pending = True
-    for i, (layer, p) in enumerate(zip(spec.layers, params)):
+    for i, layer, strategy, first_fc in plan:
         kind = type(layer).__name__.replace("Spec", "")
-        if isinstance(layer, ConvSpec):
-            strategy = conv_impls[i]
-        elif isinstance(layer, FCSpec):
-            strategy = fc_impls[i]
-        else:
-            strategy = "-"
-        first_fc = isinstance(layer, FCSpec) and first_fc_pending
-        if first_fc:
-            first_fc_pending = False
+        p = params[i]
 
         def fn():
             # a conv of an in-step impl decodes its own weight here
@@ -244,8 +233,8 @@ def profile_step_decode(spec: ModelSpec, params: Sequence[Optional[dict]],
     at the start of ``network.forward`` that decodes every conv of an
     in-step impl; None when no conv decodes in the step."""
     device = resolve_device(device)
-    convs = network.step_convs(spec, params, conv_impls, device)
-    if not instep_decodes(convs):
+    convs, decoded = network.step_decode(spec, params, conv_impls, device)
+    if not decoded:
         return None
     return time_ms(lambda: instep_decodes(convs), flush_buffer(device),
                    reps) / 1e3

@@ -6,11 +6,10 @@ the same program for the same model and batch. The thresholds below were
 measured on a TPU (qcnn_tpu/models/common.py:20-66) and are not facts about
 the H100: re-deriving them on the card is queued in ROADMAP.md A7b.
 
-MEMORY_IMPL is the PQ conv strategy of the ResNet family when its
-params still carry codebooks: "memory_fused" runs the fused decode-conv
-kernel where ``ops.conv.memory_fused_route`` qualifies the geometry and the
-in-step OHWI decode elsewhere. MEMORY_FC_IMPL selects the FC formulation;
-"auto" applies :func:`fc_memory_impl`.
+The PQ convs of the ResNet family run ``ops.conv.memory_fused_route``'s
+pick when their params still carry codebooks: the fused decode-conv kernel
+where the geometry qualifies and the in-step OHWI decode elsewhere. A PQ
+FC runs :func:`fc_memory_impl`.
 """
 
 from __future__ import annotations
@@ -21,21 +20,21 @@ import importlib
 import torch
 
 from qcnn_tpu_torch._device import default_dtype, resolve_device
+from qcnn_tpu_torch.core import is_pq
 from qcnn_tpu_torch.models import prepare
 
-MEMORY_IMPL = "memory_fused"
-MEMORY_FC_IMPL = "auto"
 FAMILIES = ("resnet", "vit")
 
 
 def fc_memory_impl(batch: int, params: dict, dtype=None) -> str:
-    """Resolve MEMORY_FC_IMPL for one FC layer and batch size.
+    """The memory-mode strategy of one FC layer at a batch size.
 
-    params: the PQ dict ({"codebooks" (S,K,D), "assignments" (Cout,S)}).
+    params: the PQ dict ({"codebooks" (S,K,D), "assignments" (Cout,S)}); a
+    dense or int8 layer runs 'dense'.
     dtype: the activation dtype; the fused kernel computes in bf16, so f32
     callers keep the exact in-step decode."""
-    if MEMORY_FC_IMPL != "auto":
-        return MEMORY_FC_IMPL
+    if not is_pq(params):
+        return "dense"
     s, k, d = params["codebooks"].shape
     cout = params["assignments"].shape[0]
     if k > 128:

@@ -2,7 +2,9 @@
 
 Port of ``qcnn_tpu/models/network.py`` (the reference's CaffeEva dispatch
 loop, CaffeEva.cc:151-260, :625-670). Whole batches flow through each layer;
-the per-layer PQ strategy is chosen up front.
+the per-layer PQ strategy is chosen up front, in :func:`layer_plan`, the
+one walk of a spec that ``forward``, ``parallel.make_sharded_forward`` and
+``eval.profiler.profile_layers`` iterate.
 
 Layout contract: ``forward`` takes NHWC ``(B, H, W, C)`` and returns
 ``(B, classes)``; the first FC flattens in NCHW order to match the Caffe
@@ -31,13 +33,8 @@ from qcnn_tpu_torch.core import (
     is_pq,
 )
 from qcnn_tpu_torch.models import common
-from qcnn_tpu_torch.ops.conv import (
-    conv_dense,
-    conv_dense_int8,
-    instep_decodes,
-    pq_conv,
-)
-from qcnn_tpu_torch.ops.fc import fc_dense, fc_dense_int8, pq_fc
+from qcnn_tpu_torch.ops.conv import conv_layer, instep_decodes
+from qcnn_tpu_torch.ops.fc import fc_layer
 from qcnn_tpu_torch.ops.misc import (
     caffe_max_pool,
     dropout_inference,
@@ -121,19 +118,61 @@ def _to_device(p: Optional[dict], device: torch.device) -> Optional[dict]:
     return out
 
 
-def step_convs(spec: ModelSpec, params: Sequence[Optional[dict]],
-               conv_impls: Sequence[str], device: torch.device,
-               upto: Optional[int] = None) -> dict:
-    """{layer index: (params on ``device``, impl, channels per group)} of
-    the PQ convs before layer ``upto``: what :func:`forward` hands
-    ``ops.conv.instep_decodes``, which decodes those with an in-step impl
-    in one launch at the start of the step."""
+def layer_plan(
+    spec: ModelSpec,
+    params: Sequence[Optional[dict]],
+    batch: int,
+    *,
+    conv_impl: str = "auto",
+    fc_impl: str = "auto",
+    dtype=None,
+    conv_impls: Optional[Sequence[str]] = None,
+    fc_impls: Optional[Sequence[str]] = None,
+) -> list[tuple[int, object, str, bool]]:
+    """The walk of a forward over ``spec``: (index, layer, impl, first_fc)
+    for every layer, impl its resolved strategy ('-' for a layer without
+    weights) and first_fc True for the first FC, which flattens NCHW
+    (:func:`fc_input`).
+
+    conv_impls/fc_impls: pre-resolved per-layer strategies; a side left
+    None resolves with :func:`resolve_strategy` on ``params`` (their
+    shapes only: a sharded forward hands it stand-ins of the global
+    shapes) at ``batch`` in ``dtype`` (float32 when None)."""
+    if conv_impls is None or fc_impls is None:
+        # resolve only the missing side — a caller passing one
+        # pre-resolved tuple must not have it silently discarded
+        conv_r, fc_r = resolve_strategy(
+            spec, params, batch, conv_impl, fc_impl,
+            dtype=dtype if dtype is not None else torch.float32)
+        conv_impls = conv_impls if conv_impls is not None else conv_r
+        fc_impls = fc_impls if fc_impls is not None else fc_r
+    plan, first_fc_done = [], False
+    for i, layer in enumerate(spec.layers):
+        first_fc = isinstance(layer, FCSpec) and not first_fc_done
+        first_fc_done = first_fc_done or first_fc
+        impl = (conv_impls[i] if isinstance(layer, ConvSpec)
+                else fc_impls[i] if isinstance(layer, FCSpec) else "-")
+        plan.append((i, layer, impl, first_fc))
+    return plan
+
+
+def step_decode(spec: ModelSpec, params: Sequence[Optional[dict]],
+                impls: Sequence[str], device: torch.device,
+                upto: Optional[int] = None) -> tuple[dict, dict]:
+    """The step's grouped decode: ({layer index: (params on ``device``,
+    impl, channels per group)} of the PQ convs before layer ``upto``, and
+    their weights from ``ops.conv.instep_decodes``, which decodes those of
+    an in-step impl in one launch at the start of the step).
+
+    impls: each layer's strategy (a plan's, or a conv_impls tuple; only
+    the convs' are read)."""
     shapes = spec.feature_shapes(batch=1)
-    return {
-        i: (_to_device(params[i], device), conv_impls[i],
+    convs = {
+        i: (_to_device(params[i], device), impls[i],
             shapes[i][3] // layer.groups)
         for i, layer in enumerate(spec.layers[:upto])
-        if isinstance(layer, ConvSpec) and conv_impls[i] != "dense"}
+        if isinstance(layer, ConvSpec) and impls[i] != "dense"}
+    return convs, instep_decodes(convs)
 
 
 def fc_input(x: torch.Tensor, first_fc: bool) -> torch.Tensor:
@@ -144,16 +183,6 @@ def fc_input(x: torch.Tensor, first_fc: bool) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
 
-def _emit(x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """A conv's or FC's output as the activation between layers: cast to
-    ``compute_dtype`` (int8 codes stay codes)."""
-    if compute_dtype is not None and x.dtype not in (torch.int8,
-                                                      compute_dtype):
-        with span("epilogue"):
-            x = x.to(compute_dtype)
-    return x
-
-
 def apply_layer(layer, p: Optional[dict], x: torch.Tensor, impl: str, *,
                 index: int, first_fc: bool = False, compute_dtype=None,
                 with_softmax: bool = True,
@@ -161,35 +190,18 @@ def apply_layer(layer, p: Optional[dict], x: torch.Tensor, impl: str, *,
     """One layer of :func:`forward`: ``index`` is the layer's place in the
     spec, which names its span (``utils.spans``); ``impl`` its resolved
     strategy ('dense' for prepared or int8 weights), ``decoded`` its weight
-    from the step's grouped decode (``ops.conv.instep_decodes``; None
-    decodes in the layer)."""
+    from the step's grouped decode (:func:`step_decode`; None decodes in
+    the layer). A conv or FC emits ``compute_dtype`` (int8 codes stay
+    codes)."""
     if isinstance(layer, ConvSpec):
-        conv = dict(stride=layer.stride, pad=layer.pad, groups=layer.groups)
         with span("conv", index):
-            if impl == "dense" and "kernel_q" in p:
-                x = conv_dense_int8(x, p["kernel_q"], p["scale"], p["bias"],
-                                    act_scale=p.get("act_scale"),
-                                    out_scale=p.get("out_scale"), **conv)
-            elif impl == "dense":
-                x = conv_dense(x, p["kernel"], p["bias"],
-                               out_dtype=compute_dtype, **conv)
-            else:
-                x = pq_conv(x, p, impl=impl, out_dtype=compute_dtype,
-                            decoded=decoded, **conv)
-            return _emit(x, compute_dtype)
+            return conv_layer(x, p, impl=impl, stride=layer.stride,
+                              pad=layer.pad, groups=layer.groups,
+                              out_dtype=compute_dtype, decoded=decoded)
     if isinstance(layer, FCSpec):
         with span("fc", index):
-            x = fc_input(x, first_fc)
-            if impl == "dense" and "weight_q" in p:
-                x = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
-                                  act_scale=p.get("act_scale"),
-                                  out_scale=p.get("out_scale"))
-            elif impl == "dense":
-                x = fc_dense(x, p["weight"], p["bias"],
-                             out_dtype=compute_dtype)
-            else:
-                x = pq_fc(x, p, impl=impl, out_dtype=compute_dtype)
-            return _emit(x, compute_dtype)
+            return fc_layer(fc_input(x, first_fc), p, impl=impl,
+                            out_dtype=compute_dtype)
     if isinstance(layer, PoolSpec):
         with span("pool", index):
             return caffe_max_pool(x, kernel=layer.kernel,
@@ -258,39 +270,24 @@ def forward(
         if x.ndim != 4:
             raise ValueError(
                 f"expected NHWC input, got shape {tuple(x.shape)}")
-        if conv_impls is None or fc_impls is None:
-            # resolve only the missing side — a caller passing one
-            # pre-resolved tuple must not have it silently discarded
-            conv_r, fc_r = resolve_strategy(
-                spec, params, x.shape[0], conv_impl, fc_impl,
-                dtype=(compute_dtype if compute_dtype is not None
-                       else torch.float32))
-            conv_impls = conv_impls if conv_impls is not None else conv_r
-            fc_impls = fc_impls if fc_impls is not None else fc_r
+        plan = layer_plan(spec, params, x.shape[0], conv_impl=conv_impl,
+                          fc_impl=fc_impl, dtype=compute_dtype,
+                          conv_impls=conv_impls, fc_impls=fc_impls)
         if compute_dtype is not None:
             x = x.to(compute_dtype)
 
         act_amax: dict[int, torch.Tensor] = {}
 
-        def record_amax(i, v):
-            if collect_act_amax:
-                act_amax[i] = v.float().abs().amax()
-
         # every PQ conv that decodes in the step, in one launch at its start
-        pq_convs = step_convs(spec, params, conv_impls, device, upto)
-        decoded = instep_decodes(pq_convs)
-
-        first_fc_done = False
-        for i, (layer, p) in enumerate(zip(spec.layers, params)):
+        pq_convs, decoded = step_decode(
+            spec, params, [impl for _, _, impl, _ in plan], device, upto)
+        for i, layer, impl, first_fc in plan:
             if i == upto:
                 return x
-            p = pq_convs[i][0] if i in pq_convs else _to_device(p, device)
-            first_fc = isinstance(layer, FCSpec) and not first_fc_done
-            first_fc_done = first_fc_done or first_fc
-            if isinstance(layer, (ConvSpec, FCSpec)):
-                record_amax(i, x)
-            impl = (conv_impls[i] if isinstance(layer, ConvSpec)
-                    else fc_impls[i])
+            p = (pq_convs[i][0] if i in pq_convs
+                 else _to_device(params[i], device))
+            if collect_act_amax and isinstance(layer, (ConvSpec, FCSpec)):
+                act_amax[i] = x.float().abs().amax()
             x = apply_layer(layer, p, x, impl, index=i, first_fc=first_fc,
                             compute_dtype=compute_dtype,
                             with_softmax=with_softmax,

@@ -7,10 +7,12 @@ ops, the spec is static data, and parameters are a nested dict: "stem",
 (including 1x1 projections) over the input-channel axis and to the final
 FC. Activations are NHWC, as in the JAX package.
 
-In memory mode (``prepare_params(memory=True)``) the PQ convs run
-``models.common.MEMORY_IMPL`` ("memory_fused": the ``pq_conv_fused`` kernel
-for qualifying 3x3 convs, the ``pq_decode`` kernel elsewhere) and the fc
-runs ``common.fc_memory_impl``. In int8 (``prepare_params(dtype=
+In memory mode (``prepare_params(memory=True)``) each PQ conv runs the
+route ``ops.conv.memory_fused_route`` picks for it (the ``pq_conv_fused``
+kernel for qualifying 3x3 convs, the ``pq_decode`` kernel elsewhere) and
+the fc runs ``common.fc_memory_impl``. Every conv and the fc go through
+``ops.conv.conv_layer`` / ``conv_product`` and ``ops.fc.fc_layer``, which
+read a layer's format. In int8 (``prepare_params(dtype=
 torch.int8)``) dense and decoded layers run the int8 conv and fc with the
 dynamic amax of each input, as the JAX package's families do; memory mode
 keeps bf16 codebooks there.
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from qcnn_tpu_torch._device import resolve_device
+from qcnn_tpu_torch.core import is_pq
 from qcnn_tpu_torch.models import common
 from qcnn_tpu_torch.models.common import make_cast as _make_cast
 from qcnn_tpu_torch.models.prepare import (
@@ -137,34 +140,6 @@ def init_dense_params(spec: ResNetSpec, seed: int = 0) -> dict:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_conv(x, p, *, stride=1, pad=0, out_dtype=None, impl=None,
-                decoded=None):
-    """impl: the PQ strategy :func:`_block_routes` resolved for this conv
-    (None resolves models/common.py MEMORY_IMPL here); decoded: its weight
-    from the block's grouped decode."""
-    if "codebooks" in p:
-        # in-step PQ decode formulation: models/common.py MEMORY_IMPL
-        return conv_ops.pq_conv(x, p, stride=stride, pad=pad,
-                                impl=impl or common.MEMORY_IMPL,
-                                out_dtype=out_dtype, decoded=decoded)
-    if "kernel_q" in p:
-        return conv_ops.conv_dense_int8(
-            x, p["kernel_q"], p["scale"], p["bias"], stride=stride, pad=pad,
-            act_scale=p.get("act_scale"))
-    return conv_ops.conv_dense(x, p["kernel"], p["bias"], stride=stride,
-                               pad=pad, out_dtype=out_dtype)
-
-
-def _apply_fc(x, p, out_dtype=None):
-    if "codebooks" in p:
-        return fc_ops.pq_fc(x, p, impl=common.fc_memory_impl(
-            x.shape[0], p, x.dtype), out_dtype=out_dtype)
-    if "weight_q" in p:
-        return fc_ops.fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
-                                    act_scale=p.get("act_scale"))
-    return fc_ops.fc_dense(x, p["weight"], p["bias"], out_dtype=out_dtype)
-
-
 def _block_inputs(x, block, stride: int, bottleneck: bool, od) -> dict:
     """{conv name: (input shape, input dtype, stride, pad)} of one residual
     block, which follow from the block's input x (NHWC): a stride-s conv
@@ -191,20 +166,15 @@ def _block_inputs(x, block, stride: int, bottleneck: bool, od) -> dict:
 
 
 def _block_routes(inputs: dict, block) -> dict:
-    """{conv name: (params, impl, Cin)} for the block's PQ convs: the
-    strategy that MEMORY_IMPL resolves to, decided once per conv from its
+    """{conv name: (params, impl, Cin)} for the block's PQ convs: the route
+    ``ops.conv.memory_fused_route`` picks, decided once per conv from its
     input (:func:`_block_inputs`)."""
-    routes = {}
-    for name, (shape, dtype, st, pad) in inputs.items():
-        p = block[name]
-        if "codebooks" not in p:
-            continue
-        impl = common.MEMORY_IMPL
-        if impl == "memory_fused":
-            impl = conv_ops.memory_fused_route(p, shape, dtype, stride=st,
-                                               pad=pad)
-        routes[name] = (p, impl, shape[3])
-    return routes
+    return {name: (block[name],
+                   conv_ops.memory_fused_route(block[name], shape, dtype,
+                                               stride=st, pad=pad),
+                   shape[3])
+            for name, (shape, dtype, st, pad) in inputs.items()
+            if is_pq(block[name])}
 
 
 def _run_block(x, block, stride: int, bottleneck: bool, cast, key: str):
@@ -218,31 +188,28 @@ def _run_block(x, block, stride: int, bottleneck: bool, cast, key: str):
     routes = _block_routes(inputs, block)
     decoded = conv_ops.instep_decodes(routes)
 
-    def conv(v, name, recast=True):
-        """Conv ``name`` on v, its output cast to the activation dtype
-        unless ``recast`` is False (the ReLU after it casts)."""
+    def conv(v, name, layer=conv_ops.conv_layer):
+        """Conv ``name`` on v through ``layer``: ``conv_layer`` emits the
+        activation dtype, ``conv_product`` leaves an int8 conv's float32
+        values for the ReLU after it to cast."""
         shape, dtype, st, pad = inputs[name]
         if tuple(v.shape) != shape or v.dtype != dtype:
             raise RuntimeError(
                 f"{name}: input {tuple(v.shape)} {v.dtype}, but its route "
                 f"was decided for {shape} {dtype}")
-        _, impl, _ = routes.get(name, (None, None, None))
+        impl = routes[name][1] if name in routes else "dense"
         with span("conv", key, name):
-            y = _apply_conv(v, block[name], stride=st, pad=pad, out_dtype=od,
-                            impl=impl, decoded=decoded.get(name))
-            if not recast or od is None or y.dtype == od:
-                return y
-            with span("epilogue"):
-                return cast(y)
+            return layer(v, block[name], impl=impl, stride=st, pad=pad,
+                         out_dtype=od, decoded=decoded.get(name))
 
     def relu_cast(v, name):
         with span("relu", key, name):
             return cast(relu(v))
 
     shortcut = conv(x, "proj") if "proj" in block else x
-    y = relu_cast(conv(x, "conv1", recast=False), "conv1")
+    y = relu_cast(conv(x, "conv1", conv_ops.conv_product), "conv1")
     if bottleneck:
-        y = relu_cast(conv(y, "conv2", recast=False), "conv2")
+        y = relu_cast(conv(y, "conv2", conv_ops.conv_product), "conv2")
         y = conv(y, "conv3")
     else:
         y = conv(y, "conv2")
@@ -252,8 +219,9 @@ def _run_block(x, block, stride: int, bottleneck: bool, cast, key: str):
 
 def _run_stem(x, params, cast):
     with span("conv", "stem"):
-        x = _apply_conv(x, params["stem"], stride=2, pad=3,
-                        out_dtype=getattr(cast, "dtype", None))
+        x = conv_ops.conv_product(x, params["stem"], impl="memory_fused",
+                                  stride=2, pad=3,
+                                  out_dtype=getattr(cast, "dtype", None))
     with span("relu", "stem"):
         x = cast(relu(x))
     # floor-mode pool: 112 -> 56, as torchvision
@@ -265,10 +233,11 @@ def _run_head(x, params, cast, with_softmax: bool):
     with span("pool", "head"):
         x = x.float().mean(dim=(1, 2))  # global average pool
     with span("fc", "head"):
-        logits = _apply_fc(cast(x), params["fc"])
-        if logits.dtype != torch.float32:
-            with span("epilogue"):
-                logits = logits.float()
+        x = cast(x)
+        p = params["fc"]
+        logits = fc_ops.fc_layer(
+            x, p, impl=common.fc_memory_impl(x.shape[0], p, x.dtype),
+            out_dtype=torch.float32)
     if with_softmax:
         with span("softmax", "head"):
             logits = torch.softmax(logits, dim=-1)

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from qcnn_tpu_torch._device import resolve_device
+from qcnn_tpu_torch.core import is_pq
 from qcnn_tpu_torch.models import common
 from qcnn_tpu_torch.models.common import make_cast as _make_cast
 from qcnn_tpu_torch.models.prepare import (
@@ -50,6 +51,7 @@ from qcnn_tpu_torch.models.prepare import (
     dense_layer,
 )
 from qcnn_tpu_torch.ops import fc as fc_ops
+from qcnn_tpu_torch.ops.conv import instep_decodes
 from qcnn_tpu_torch.ops.cuda import attention_fused as attn_kernel
 from qcnn_tpu_torch.quantizer.kmeans import split
 from qcnn_tpu_torch.quantizer.opq import inverse_permutation
@@ -206,26 +208,17 @@ def _masked_attention(q, k, v, n_pad: int = 0, logits_dtype=torch.float32,
 
 
 def _proj(x, p, out_dtype=None, impl=None, decoded=None):
-    """(…, Cin) @ gemm -> (…, Cout), PQ or dense.
+    """(…, Cin) @ gemm -> (…, Cout) in ``out_dtype`` through
+    ``ops.fc.fc_layer``.
 
-    impl: the PQ strategy :func:`_block_routes` resolved (None resolves
-    ``common.fc_memory_impl`` on the rows here); decoded: the weight from
-    the block's grouped decode. out_dtype: the dtype the GEMM emits."""
-    lead = x.shape[:-1]
+    impl: the strategy :func:`_block_routes` resolved (None resolves
+    ``common.fc_memory_impl`` on the rows here: projections see B x tokens
+    rows); decoded: the weight from the block's grouped decode."""
     x2 = x.reshape(-1, x.shape[-1])
-    if "codebooks" in p:
-        # the PQ FC by models/common.py MEMORY_FC_IMPL (a per-rows rule:
-        # projections see B * tokens rows)
-        y = fc_ops.pq_fc(x2, p, impl=impl or common.fc_memory_impl(
-            x2.shape[0], p, x2.dtype), out_dtype=out_dtype, decoded=decoded)
-    elif "weight_q" in p:
-        y = fc_ops.fc_dense_int8(x2, p["weight_q"], p["scale"], p["bias"],
-                                 act_scale=p.get("act_scale"))
-    else:
-        y = fc_ops.fc_dense(x2, p["weight"], p["bias"], out_dtype=out_dtype)
-    if out_dtype is not None and y.dtype != out_dtype:
-        y = y.to(out_dtype)  # the int8 and kernel branches emit float32
-    return y.reshape(*lead, y.shape[-1])
+    y = fc_ops.fc_layer(
+        x2, p, impl=impl or common.fc_memory_impl(x2.shape[0], p, x2.dtype),
+        out_dtype=out_dtype, decoded=decoded)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def forward(params: dict, x, *, spec: ViTSpec, compute_dtype=None,
@@ -265,7 +258,7 @@ def _run_embed(x, params, spec, cast):
         # order
         x = x.reshape(b, h // p, p, w // p, p, c)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, spec.num_patches, -1)
-        x = cast(_proj(x, params["patch_embed"], out_dtype=cast.dtype))
+        x = _proj(x, params["patch_embed"], out_dtype=cast.dtype)
         cls = params["cls_token"].to(x.dtype).expand(b, 1, spec.dim)
         x = torch.cat([cls, x], dim=1)
         return x + params["pos_embed"].to(x.dtype)
@@ -290,7 +283,7 @@ def _block_routes(inputs: dict, blk) -> dict:
     return {name: (blk[name], common.fc_memory_impl(rows, blk[name], dtype),
                    cin)
             for name, (rows, cin, dtype) in inputs.items()
-            if "codebooks" in blk[name]}
+            if is_pq(blk[name])}
 
 
 def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
@@ -304,7 +297,7 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
     od = cast.dtype
     inputs = _block_inputs(x, blk, od)
     routes = _block_routes(inputs, blk)
-    decoded = fc_ops.instep_decodes(routes)
+    decoded = instep_decodes(routes)
 
     def proj(v, name):
         if (v.shape[0] * v.shape[1], v.shape[2], v.dtype) != inputs[name]:
@@ -341,7 +334,7 @@ def _run_head(x, params, with_softmax: bool):
     with span("layernorm", "final"):
         x = _layernorm(x, params["ln_final"])
     with span("fc", "head"):
-        logits = _proj(x[:, 0], params["head"]).float()
+        logits = _proj(x[:, 0], params["head"], out_dtype=torch.float32)
     if with_softmax:
         with span("softmax", "head"):
             logits = torch.softmax(logits, dim=-1)

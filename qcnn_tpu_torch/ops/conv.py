@@ -28,6 +28,11 @@ LUT formulation as one convolution of the LUT with the one-hot assignments
 Float32 convolutions run with TF32 off, whatever the caller's global
 setting: cuDNN's default would round f32 operands to TF32.
 
+The forwards reach a conv through :func:`conv_layer` (:func:`conv_product`
+where a ReLU casts after the product), the one place that reads a layer
+dict's format: PQ, int8 or dense. :func:`instep_decodes` decodes a group
+of convs and FCs in one ``pq_decode`` launch.
+
 The int8 conv (:func:`conv_dense_int8`) has no library convolution on the
 card (cuDNN takes no int8 conv through torch, and ``F.unfold`` no int8), so
 it is an im2col of the int8 codes, copied once, and the shared int8 GEMM
@@ -45,6 +50,7 @@ from qcnn_tpu_torch.ops.cuda import pq_conv_fused, pq_decode, pq_fc_fused
 from qcnn_tpu_torch.ops.fc import (
     INT_MM_MIN_ROWS,
     check_gdecode_codewords,
+    emit,
     int8_matmul,
     matmul,
     pad_k_columns,
@@ -404,15 +410,6 @@ def pq_conv_lut(x: torch.Tensor, params: dict, *, stride: int, pad: int,
                       out_dtype=out_dtype)
 
 
-def _cast(y: torch.Tensor, out_dtype) -> torch.Tensor:
-    """A fused kernel's float32 output in ``out_dtype`` (kept when
-    None)."""
-    if out_dtype is None or y.dtype == out_dtype:
-        return y
-    with span("epilogue"):
-        return y.to(out_dtype)
-
-
 def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
                    groups: int, out_dtype) -> torch.Tensor:
     """A 1x1 conv as an FC over the flattened pixels, through the
@@ -431,7 +428,7 @@ def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
             "bias": params["bias"]}
     y = pq_fc_fused.pq_fc_fused(x.reshape(b * h * w, cin), fc_p,
                                 decode="gather").reshape(b, h, w, -1)
-    return _cast(y, out_dtype)
+    return emit(y, out_dtype)
 
 
 def pq_conv(
@@ -469,7 +466,7 @@ def pq_conv(
                 "for the auto-fallback mix)")
         out = pq_conv_fused.pq_conv_fused(x, params, stride=stride, pad=pad,
                                           groups=groups)
-        return _cast(out, out_dtype)
+        return emit(out, out_dtype)
     if impl == "memory_fused":
         route = memory_fused_route(params, x.shape, x.dtype, stride=stride,
                                    pad=pad, groups=groups)
@@ -499,18 +496,53 @@ def pq_conv(
     )
 
 
-def instep_decodes(convs: dict) -> dict:
-    """Decode, in one ``pq_decode`` launch, every conv of a group that runs
-    an in-step decode impl.
+def conv_product(x: torch.Tensor, p: dict, *, impl: str, stride: int,
+                 pad: int, groups: int = 1, out_dtype=None,
+                 decoded: torch.Tensor | None = None) -> torch.Tensor:
+    """One conv layer's product by the format of its param dict: a PQ dict
+    (``codebooks``) through :func:`pq_conv` by ``impl`` (``decoded``: its
+    weight from a grouped decode), an int8 one (``kernel_q``) through
+    :func:`conv_dense_int8` with its ``act_scale`` and ``out_scale``, any
+    other through :func:`conv_dense`, whatever ``impl`` says. In
+    ``out_dtype``, but for an int8 conv's values, which stay float32:
+    :func:`conv_layer` casts them, and ResNet's convs before a ReLU cast
+    after it. The forwards read a conv's format here only."""
+    conv = dict(stride=stride, pad=pad, groups=groups)
+    if "codebooks" in p:
+        return pq_conv(x, p, impl=impl, out_dtype=out_dtype, decoded=decoded,
+                       **conv)
+    if "kernel_q" in p:
+        return conv_dense_int8(x, p["kernel_q"], p["scale"], p["bias"],
+                               act_scale=p.get("act_scale"),
+                               out_scale=p.get("out_scale"), **conv)
+    return conv_dense(x, p["kernel"], p["bias"], out_dtype=out_dtype, **conv)
 
-    convs: {key: (params, impl, channels per group)}; entries with another
-    impl are skipped. Returns {key: (Cout, kh, kw, Cg) buffer} to hand to
-    :func:`pq_conv` as ``decoded``. The weights of the group live until the
-    caller drops the dict."""
-    keys = [key for key, (_, impl, _) in convs.items()
-            if impl in _INSTEP_LAYOUTS]
-    with span("decode") if keys else NO_SPAN:
-        buffers = pq_decode.decode_conv_kernels_many(
-            [(convs[key][0]["codebooks"], convs[key][0]["assignments"],
-              convs[key][2]) for key in keys])
-    return dict(zip(keys, buffers))
+
+def conv_layer(x: torch.Tensor, p: dict, *, impl: str, stride: int,
+               pad: int, groups: int = 1, out_dtype=None,
+               decoded: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`conv_product` emitted in ``out_dtype``
+    (``ops.fc.emit``)."""
+    return emit(conv_product(x, p, impl=impl, stride=stride, pad=pad,
+                             groups=groups, out_dtype=out_dtype,
+                             decoded=decoded), out_dtype)
+
+
+def instep_decodes(layers: dict) -> dict:
+    """Decode, in one ``pq_decode`` launch, every conv and FC of a group
+    that runs an in-step decode impl.
+
+    layers: {key: (params, impl, row length)}, a conv's row its channels
+    per group and an FC's its Cin; entries with another impl are skipped.
+    Returns {key: weight} to hand to :func:`pq_conv` or ``ops.fc.pq_fc`` as
+    ``decoded``: a conv's (Cout, kh, kw, Cg) buffer, an FC's (Cout, Cin)
+    rows. The weights of the group live until the caller drops the dict."""
+    group = [(key, p, n) for key, (p, impl, n) in layers.items()
+             if impl in _INSTEP_LAYOUTS]
+    with span("decode") if group else NO_SPAN:
+        rows = pq_decode.decode_rows_many(
+            [(p["codebooks"],
+              p["assignments"].reshape(-1, p["assignments"].shape[-1]), n)
+             for _, p, n in group])
+        return {key: w.reshape(*p["assignments"].shape[:-1], n)
+                for (key, p, n), w in zip(group, rows)}

@@ -11,6 +11,10 @@ Strategy names keep the JAX vocabulary. In-step decodes (``indecode``,
 ``fused``/``fgather`` the ``pq_fc_fused`` kernel; ``onehot``, ``gather`` and
 ``decode`` are plain PyTorch.
 
+The forwards reach an FC through :func:`fc_layer`, the one place that reads
+a layer dict's format; it and ``ops.conv.conv_layer`` end with
+:func:`emit`, the one cast of a product to the activation dtype.
+
 int8 execution (``fc_dense_int8``, shared with ``ops.conv``): symmetric
 per-tensor activation codes times per-output-channel weight codes, summed
 in int32 by :func:`int8_matmul`, which is cuBLASLt's int8 GEMM
@@ -31,7 +35,7 @@ from qcnn_tpu_torch.ops.cuda import (
     pq_fc_fused,
     pq_lut_gather,
 )
-from qcnn_tpu_torch.utils.spans import NO_SPAN, span
+from qcnn_tpu_torch.utils.spans import span
 
 # the JAX Pallas gather's one-vreg table, kept on the names whose JAX entry
 # points raise past it (qcnn_tpu/ops/pallas/pq_decode.py:88-92)
@@ -262,37 +266,20 @@ def pq_fc_indecode(x: torch.Tensor, params: dict, out_dtype=None,
     stay resident; the dense copy is a transient.
 
     decoded: the layer's (Cout, Cin) rows from a grouped decode
-    (:func:`instep_decodes`) in place of its own launch."""
+    (``ops.conv.instep_decodes``) in place of its own launch."""
     if decoded is None:
         decoded = pq_decode.decode_rows(params["codebooks"],
                                         params["assignments"], x.shape[-1])
     return fc_dense(x, decoded.t(), params["bias"], out_dtype=out_dtype)
 
 
-def instep_decodes(fcs: dict) -> dict:
-    """Decode, in one ``pq_decode`` launch, every FC of a group that runs
-    an in-step decode impl ('indecode', 'gdecode').
-
-    fcs: {key: (params, impl, Cin)}; entries with another impl are
-    skipped. Returns {key: (Cout, Cin) rows} to hand to :func:`pq_fc` as
-    ``decoded``. The weights of the group live until the caller drops the
-    dict."""
-    keys = [key for key, (_, impl, _) in fcs.items()
-            if impl in ("indecode", "gdecode")]
-    with span("decode") if keys else NO_SPAN:
-        rows = pq_decode.decode_rows_many(
-            [(fcs[key][0]["codebooks"], fcs[key][0]["assignments"],
-              fcs[key][2]) for key in keys])
-    return dict(zip(keys, rows))
-
-
 def pq_fc(x: torch.Tensor, params: dict, impl: str = "onehot",
           out_dtype=None, decoded: torch.Tensor | None = None
           ) -> torch.Tensor:
     """PQ FC by strategy name. out_dtype: the dtype emitted by the one-hot
-    and decode-GEMM impls; the gather and kernel impls emit float32 and the
-    caller casts. decoded: the layer's rows from :func:`instep_decodes`,
-    for the in-step decode impls."""
+    and decode-GEMM impls; the gather and kernel impls emit float32, which
+    :func:`fc_layer` casts. decoded: the layer's rows from
+    ``ops.conv.instep_decodes``, for the in-step decode impls."""
     if "perm" in params:
         # OPQ input permutation (quantizer/opq.py): sub-spaces were fit on
         # w[:, perm], so every in-graph formulation consumes x[..., perm]
@@ -320,3 +307,35 @@ def pq_fc(x: torch.Tensor, params: dict, impl: str = "onehot",
     if impl == "fgather":
         return pq_fc_fused.pq_fc_fused(x, params, decode="gather")
     raise ValueError(f"unknown pq_fc impl: {impl}")
+
+
+def emit(y: torch.Tensor, out_dtype) -> torch.Tensor:
+    """A product as the activation between layers: cast to ``out_dtype``
+    (kept when None) in one pass under the ``epilogue`` span; int8 codes
+    (an ``out_scale``) stay codes. :func:`fc_layer`,
+    ``ops.conv.conv_layer`` and the fused routes of ``ops.conv.pq_conv``
+    end with it, and no other code casts a product."""
+    if out_dtype is None or y.dtype in (out_dtype, torch.int8):
+        return y
+    with span("epilogue"):
+        return y.to(out_dtype)
+
+
+def fc_layer(x: torch.Tensor, p: dict, *, impl: str, out_dtype=None,
+             decoded: torch.Tensor | None = None) -> torch.Tensor:
+    """One FC layer by the format of its param dict, emitted in
+    ``out_dtype`` (:func:`emit`): a PQ dict (``codebooks``) through
+    :func:`pq_fc` by ``impl`` (``decoded``: its rows from a grouped
+    decode), an int8 one (``weight_q``) through :func:`fc_dense_int8` with
+    its ``act_scale`` and ``out_scale``, any other through
+    :func:`fc_dense`, whatever ``impl`` says. The forwards read an FC's
+    format here only."""
+    if "codebooks" in p:
+        y = pq_fc(x, p, impl=impl, out_dtype=out_dtype, decoded=decoded)
+    elif "weight_q" in p:
+        y = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
+                          act_scale=p.get("act_scale"),
+                          out_scale=p.get("out_scale"))
+    else:
+        y = fc_dense(x, p["weight"], p["bias"], out_dtype=out_dtype)
+    return emit(y, out_dtype)

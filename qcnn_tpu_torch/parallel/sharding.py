@@ -30,6 +30,7 @@ batch. Served int8 models carry static scales (``models.calibrate``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -38,11 +39,10 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Shard
 
 from qcnn_tpu_torch._device import resolve_device
-from qcnn_tpu_torch.core import ConvSpec, FCSpec, ModelSpec, is_pq
+from qcnn_tpu_torch.core import FCSpec, ModelSpec, is_pq
 from qcnn_tpu_torch.models import network
 from qcnn_tpu_torch.ops import lut as lut_ops
-from qcnn_tpu_torch.ops.conv import instep_decodes
-from qcnn_tpu_torch.ops.fc import pq_fc
+from qcnn_tpu_torch.ops.fc import emit, fc_layer
 from qcnn_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -115,6 +115,15 @@ class ShardedParams(list):
         self.placements = placements
         self.global_shapes = global_shapes
 
+    @functools.cached_property
+    def stand_ins(self) -> list:
+        """Layer dicts of shape-only (meta) tensors at the global shapes:
+        what ``network.resolve_strategy`` reads, so a shard resolves the
+        memory-FC route of the whole layer and batch."""
+        return [None if s is None else
+                {k: torch.empty(v, device="meta") for k, v in s.items()}
+                for s in self.global_shapes]
+
 
 def _as_tensor(v, device: torch.device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
@@ -186,15 +195,6 @@ def make_dp_forward(forward_fn, mesh: DeviceMesh):
     return fwd
 
 
-def _shape_stand_ins(params: ShardedParams) -> list:
-    """Layer dicts of shape-only (meta) tensors at the global shapes: what
-    ``network.resolve_strategy`` reads, so a shard resolves the memory-FC
-    route of the whole layer and batch."""
-    return [None if s is None else
-            {k: torch.empty(v, device="meta") for k, v in s.items()}
-            for s in params.global_shapes]
-
-
 def _fc_mode_of(pl: dict) -> Optional[str]:
     """'column' / 'row' for a sharded PQ FC's placements, else None."""
     if not pl or "assignments" not in pl:
@@ -208,20 +208,20 @@ def _fc_mode_of(pl: dict) -> Optional[str]:
 def column_fc(x: torch.Tensor, p: dict, impl: str, group,
               out_dtype=None) -> torch.Tensor:
     """A column-parallel PQ FC: this rank's output channels (assignments
-    and bias cut over Cout), then a tiled all_gather over ``group``."""
-    local = pq_fc(x, p, impl=impl, out_dtype=out_dtype)
-    if out_dtype is not None:
-        local = local.to(out_dtype)
+    and bias cut over Cout) in ``out_dtype``, then a tiled all_gather over
+    ``group``."""
+    local = fc_layer(x, p, impl=impl, out_dtype=out_dtype)
     return all_gather_cat(local, group, dim=-1)
 
 
-def row_fc(x: torch.Tensor, p: dict, impl: str, group, index: int, tp: int
-           ) -> torch.Tensor:
+def row_fc(x: torch.Tensor, p: dict, impl: str, group, index: int, tp: int,
+           out_dtype=None) -> torch.Tensor:
     """A row-parallel PQ FC: this rank's sub-spaces (codebooks and
     assignments cut over S) summed in float32, an all_reduce over
-    ``group``, then the bias once. The OPQ ``perm`` applies to the full
-    input before the slice; the input is zero-padded to the codebooks'
-    span (S*D) first, as ``ops.lut.build_lut`` does."""
+    ``group``, then the bias once, emitted in ``out_dtype``. The OPQ
+    ``perm`` applies to the full input before the slice; the input is
+    zero-padded to the codebooks' span (S*D) first, as
+    ``ops.lut.build_lut`` does."""
     if "perm" in p:
         x = torch.index_select(x, -1, p["perm"].long())
     s_local, _, d = p["codebooks"].shape
@@ -231,9 +231,9 @@ def row_fc(x: torch.Tensor, p: dict, impl: str, group, index: int, tp: int
     local = {"codebooks": p["codebooks"], "assignments": p["assignments"],
              "bias": torch.zeros(p["bias"].shape, dtype=torch.float32,
                                  device=x.device)}
-    partial = pq_fc(x, local, impl=impl).float()
+    partial = fc_layer(x, local, impl=impl, out_dtype=torch.float32)
     dist.all_reduce(partial, group=group)
-    return partial + p["bias"].float()
+    return emit(partial + p["bias"].float(), out_dtype)
 
 
 def make_sharded_forward(
@@ -274,34 +274,24 @@ def make_sharded_forward(
                             "output")
         x = torch.as_tensor(x, device=device)
         batch = x.shape[0]
-        conv_i, fc_i = conv_impls, fc_impls
-        if conv_i is None or fc_i is None:
-            conv_r, fc_r = network.resolve_strategy(
-                spec, _shape_stand_ins(params), batch, conv_impl, fc_impl,
-                dtype=(compute_dtype if compute_dtype is not None
-                       else torch.float32))
-            conv_i = conv_i if conv_i is not None else conv_r
-            fc_i = fc_i if fc_i is not None else fc_r
+        plan = network.layer_plan(
+            spec, params.stand_ins, batch, conv_impl=conv_impl,
+            fc_impl=fc_impl, dtype=compute_dtype, conv_impls=conv_impls,
+            fc_impls=fc_impls)
         h = data_slice(x, mesh)
         if compute_dtype is not None:
             h = h.to(compute_dtype)
-        pq_convs = network.step_convs(spec, params, conv_i, device)
-        decoded = instep_decodes(pq_convs)
-        first_fc_done = False
-        for i, (layer, p) in enumerate(zip(spec.layers, params)):
-            p = pq_convs[i][0] if i in pq_convs else p
-            first_fc = isinstance(layer, FCSpec) and not first_fc_done
-            first_fc_done = first_fc_done or first_fc
+        pq_convs, decoded = network.step_decode(
+            spec, params, [impl for _, _, impl, _ in plan], device)
+        for i, layer, impl, first_fc in plan:
+            p = pq_convs[i][0] if i in pq_convs else params[i]
             mode = _fc_mode_of(params.placements[i])
-            impl = conv_i[i] if isinstance(layer, ConvSpec) else fc_i[i]
             if mode == "column":
                 h = column_fc(network.fc_input(h, first_fc), p, impl,
                               model_group, out_dtype=compute_dtype)
             elif mode == "row":
                 h = row_fc(network.fc_input(h, first_fc), p, impl,
-                           model_group, index, tp)
-                if compute_dtype is not None:
-                    h = h.to(compute_dtype)
+                           model_group, index, tp, out_dtype=compute_dtype)
             else:
                 h = network.apply_layer(
                     layer, p, h, impl, index=i, first_fc=first_fc,
@@ -310,4 +300,3 @@ def make_sharded_forward(
         return gather_batch(h, mesh, batch)
 
     return fwd
-

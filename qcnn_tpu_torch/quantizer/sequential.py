@@ -37,6 +37,7 @@ from qcnn_tpu_torch.models import network
 from qcnn_tpu_torch.models import resnet as R
 from qcnn_tpu_torch.models import vit as V
 from qcnn_tpu_torch.models.network import _to_device
+from qcnn_tpu_torch.ops.conv import conv_layer
 from qcnn_tpu_torch.quantizer.kmeans import split
 from qcnn_tpu_torch.quantizer.pq import quantize_conv_layer, quantize_fc_layer
 
@@ -120,16 +121,17 @@ def quantize_resnet_ec(
             rblk[name] = _to_device(qblk[name], dev)
             return rblk[name]
 
+        def conv(v, name, **kw):
+            return conv_layer(v, quant(name, v), impl="memory_fused", **kw)
+
         if "proj" in src:
             quant("proj", a)
         if spec.bottleneck:
-            y = R.relu(R._apply_conv(a, quant("conv1", a)))
-            y = R.relu(R._apply_conv(y, quant("conv2", y), stride=stride,
-                                     pad=1))
+            y = R.relu(conv(a, "conv1", stride=1, pad=0))
+            y = R.relu(conv(y, "conv2", stride=stride, pad=1))
             quant("conv3", y)
         else:
-            y = R.relu(R._apply_conv(a, quant("conv1", a), stride=stride,
-                                     pad=1))
+            y = R.relu(conv(a, "conv1", stride=stride, pad=1))
             quant("conv2", y)
         out[key] = qblk
         a = R._run_block(a, rblk, stride, spec.bottleneck, cast, key)

@@ -29,7 +29,6 @@ from qcnn_tpu.models import resnet as jresnet
 from qcnn_tpu.models import synth as jsynth
 from qcnn_tpu.models.prepare import prepare_params as jprepare
 from qcnn_tpu.ops import lut as jlut
-from qcnn_tpu_torch.models import common as tcommon
 from qcnn_tpu_torch.models import network as tnet
 from qcnn_tpu_torch.models import resnet as tresnet
 from qcnn_tpu_torch.models import synth as tsynth
@@ -367,14 +366,14 @@ RESNET_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-2, 2e-3)}
 
 
 def _block_per_conv(x, block, stride, bottleneck, cast, key):
-    """A residual block in which every conv resolves MEMORY_IMPL and decodes
-    for itself: the forward before the grouped decode (``key``, the block's
-    name in its spans, is unused)."""
+    """A residual block in which every conv resolves 'memory_fused' and
+    decodes for itself: the forward before the grouped decode (``key``, the
+    block's name in its spans, is unused)."""
     od = getattr(cast, "dtype", None)
 
     def conv(v, p, **kw):
         if "codebooks" in p:
-            return conv_ops.pq_conv(v, p, impl=tcommon.MEMORY_IMPL,
+            return conv_ops.pq_conv(v, p, impl="memory_fused",
                                     out_dtype=od, **kw)
         return conv_ops.conv_dense(v, p["kernel"], p["bias"], out_dtype=od,
                                    **kw)

@@ -39,7 +39,7 @@ from qcnn_tpu_torch.models import common as tcommon
 from qcnn_tpu_torch.models import synth
 from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models.interop import family_params_from_jax
-from qcnn_tpu_torch.ops import fc as fc_ops
+from qcnn_tpu_torch.ops import conv as conv_ops
 from qcnn_tpu_torch.ops.cuda import pq_decode
 from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
@@ -325,7 +325,7 @@ def test_block_decodes_in_one_grouped_launch(monkeypatch):
     blk = prepared["blk1"]
     routes = {name: (blk[name], "indecode", blk[name]["codebooks"].shape[0]
                      * 4) for name in ("qkv", "out", "mlp1", "mlp2")}
-    rows = fc_ops.instep_decodes(routes)
+    rows = conv_ops.instep_decodes(routes)
     for name, (p, _, cin) in routes.items():
         torch.testing.assert_close(
             rows[name], many([(p["codebooks"], p["assignments"], cin)])[0],

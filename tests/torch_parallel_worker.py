@@ -308,13 +308,13 @@ def parallel_cases(rank: int, world: int, out_dir: str) -> dict:
         dtype=torch.bfloat16, device="cpu")
     out["route_prepared_impls"] = np.array(fc_impls)
     seen = []
-    real = sharding.pq_fc
+    real = sharding.fc_layer
 
-    def recording(x, p, impl="onehot", **kw):
+    def recording(x, p, *, impl, **kw):
         seen.append(impl)
         return real(x, p, impl=impl, **kw)
 
-    sharding.pq_fc = recording
+    sharding.fc_layer = recording
     try:
         fwd = make_sharded_forward(rspec, meshes[(4, 1)], fc_impl="memory",
                                    compute_dtype=torch.bfloat16,
@@ -322,7 +322,7 @@ def parallel_cases(rank: int, world: int, out_dir: str) -> dict:
         got = fwd(shard_params(rspec, rparams, meshes[(4, 1)],
                                device="cpu"), torch.as_tensor(xr))
     finally:
-        sharding.pq_fc = real
+        sharding.fc_layer = real
     out["route_seen"] = np.array(seen)
     out["route_sharded"] = _np(got)
     out["route_unsharded"] = _np(network.forward(
