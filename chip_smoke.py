@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only-fused   # phases 1-2 and the two decode-GEMMs
     python3 chip_smoke.py --only-gather  # phases 1-2 and the two gathers
     python3 chip_smoke.py --only-lut-lrn # phases 1-2, pq_lut_gather, lrn_fused
+    python3 chip_smoke.py --only-epilogue  # phases 1-2 and epilogue_fused
     python3 chip_smoke.py --only-int8    # phases 1-2, the f32 conv check, 8
     python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
     python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
@@ -78,7 +79,11 @@ Phases, each fatal on failure (any exception exits non-zero):
    counted (every AlexNet-family forward on the card also runs it:
    ops.misc.lrn_route), and the four
    general kernels through the public entry points on ragged shapes, each
-   counted under its own name.
+   counted under its own name. epilogue_fused at every epilogue shape of the
+   three benchmark cells against torch's chain, bit for bit (the GELU: one
+   bf16 step at most, where erff differs, counted), the first shapes
+   timed. Every bf16 path below launches it once an epilogue that fuses a
+   bias, an activation or a residual (EPILOGUES_*), and no int8 path does.
 5. end to end: full-width AlexNet-PQ, synthetic params (seed 0), bf16,
    strategy 'auto' (decode at load) and 'memory' (in-step kernels) at
    B=256 and B=1; the launch counts show that memory mode ran the kernels
@@ -93,8 +98,8 @@ Phases, each fatal on failure (any exception exits non-zero):
    Memory mode launches pq_conv_fused 7 times a forward (conv2 of stage 2
    blocks 1-5 and stage 3 blocks 1-2) and pq_decode 17 times (one launch
    at the head of each of the 16 blocks for its other PQ convs, and the fc
-   head); decode at load launches no kernel. No path launches a general
-   kernel.
+   head); decode at load launches no decode kernel. Both launch
+   epilogue_fused 53 times a forward. No path launches a general kernel.
 8. int8. What torch._int_mm (cuBLASLt's int8 GEMM) takes is logged, and
    that it takes a weight's column-major view without a copy is held.
    AlexNet is calibrated as bench.py does (one bf16 pass over 32 images,
@@ -398,8 +403,21 @@ ALEXNET_FCS = ("fc6", "fc7", "fc8")
 # launches of an AlexNet memory-mode forward at a large batch (fc6-fc8 in
 # pq_fc_fused) and at B=1 (fc6-fc8 in pq_lut_gather)
 LRNS = {"lrn_fused": 2}
-ALEXNET_MEMORY_B256 = {**LRNS, "pq_decode": 1, "pq_fc_fused": 3}
-ALEXNET_MEMORY_B1 = {**LRNS, "pq_decode": 1, "pq_lut_gather": 3}
+# epilogue_fused a forward (ops.cuda.epilogue_fused.route: every bf16
+# epilogue with a bias, an activation or a residual): AlexNet's 5 convs'
+# bias adds (its FCs' float32 sums are cast alone, by torch), and the 3
+# FCs' where they are dense; ResNet-50's 33 ReLUs, 16 shortcuts and 4
+# projections; ViT-B/16's and ViT-L/16's 4 projections a block and the
+# patch embedding; none on the int8 paths
+EPILOGUES_ALEXNET = {"epilogue_fused": 5}
+EPILOGUES_ALEXNET_DENSE = {"epilogue_fused": 8}
+EPILOGUES_RESNET50 = {"epilogue_fused": 53}
+ALEXNET_AUTO = {**LRNS, **EPILOGUES_ALEXNET_DENSE}
+ALEXNET_MEMORY_B256 = {**LRNS, "pq_decode": 1, "pq_fc_fused": 3,
+                       **EPILOGUES_ALEXNET}
+ALEXNET_MEMORY_B1 = {**LRNS, "pq_decode": 1, "pq_lut_gather": 3,
+                     **EPILOGUES_ALEXNET}
+RESNET50_MEMORY = {"pq_conv_fused": 7, "pq_decode": 17, **EPILOGUES_RESNET50}
 # peak_alloc_bytes of the memory-mode runs when every conv decoded for
 # itself (this script's run of the version before the grouped decode, on an
 # H100 80GB HBM3): a group's weights now live until its block or step ends
@@ -1569,12 +1587,12 @@ def phase_end_to_end(spec, params, dev, gpu_name):
 
     x_all = torch.from_numpy(synth.random_input(spec, 256, seed=1)).to(dev)
     expect = {  # launches per forward of each kernel, by strategy and batch
-        ("auto", "auto", 256): LRNS,
-        ("auto", "auto", 1): LRNS,
+        ("auto", "auto", 256): ALEXNET_AUTO,
+        ("auto", "auto", 1): ALEXNET_AUTO,
         ("memory", "memory", 256): ALEXNET_MEMORY_B256,
         ("memory", "memory", 1): ALEXNET_MEMORY_B1,
-        ("auto", "pallas", 256): {**LRNS, "pq_fc": 3},
-        ("auto", "pallas", 1): {**LRNS, "pq_fc": 3},
+        ("auto", "pallas", 256): {**LRNS, "pq_fc": 3, **EPILOGUES_ALEXNET},
+        ("auto", "pallas", 1): {**LRNS, "pq_fc": 3, **EPILOGUES_ALEXNET},
     }
     probs, counts = {}, {}
     for (conv_mode, fc_mode, b), per_fwd in expect.items():
@@ -1621,8 +1639,7 @@ def phase_resnet(dev, gpu_name):
     gen = torch.Generator(device=dev).manual_seed(1)
     x_all = torch.randn((64, spec.in_size, spec.in_size, 3), generator=gen,
                         device=dev)
-    per_fwd = {"memory": {"pq_conv_fused": 7, "pq_decode": 17},
-               "decode": {}}
+    per_fwd = {"memory": RESNET50_MEMORY, "decode": EPILOGUES_RESNET50}
     probs, counts = {}, {}
     for mode in ("decode", "memory"):
         t0 = time.perf_counter()
@@ -2286,7 +2303,7 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
         counts["io resnet50 family"] = io_drive(
             f"resnet50 family classify_batch memory B={IO_FAMILY_BMPS}", fam,
             lambda: fam.classify_batch(paths16), 3,
-            {"pq_conv_fused": 7, "pq_decode": 17}, IO_FAMILY_BMPS)
+            RESNET50_MEMORY, IO_FAMILY_BMPS)
         got = torch.from_numpy(fam._probs(x_native))
         del fam
         dec = FamilyClassifier.from_checkpoint(ck, memory=False)
@@ -2301,13 +2318,16 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
 # phase 10: (run, model, mode, batches, launches a forward); every run's
 # activations are bf16, so each block's attention is one attention_fused
 VIT_RUNS = (
-    ("A", "vit_b16", "decode", (32, 1), {"attention_fused": 12}),
+    ("A", "vit_b16", "decode", (32, 1),
+     {"attention_fused": 12, "epilogue_fused": 49}),
     ("B", "vit_b16", "memory", (32, 1),
-     {"pq_decode": 14, "attention_fused": 12}),
+     {"pq_decode": 14, "attention_fused": 12, "epilogue_fused": 49}),
     ("E", "vit_b16", "int8", (32,), {"attention_fused": 12}),
     ("C", "vit_l16", "memory", (1,),
-     {"pq_decode": 26, "pq_fc_fused": 48, "attention_fused": 24}),
-    ("D", "vit_l16", "decode", (1,), {"attention_fused": 24}),
+     {"pq_decode": 26, "pq_fc_fused": 48, "attention_fused": 24,
+      "epilogue_fused": 97}),
+    ("D", "vit_l16", "decode", (1,),
+     {"attention_fused": 24, "epilogue_fused": 97}),
 )
 # attention_fused's shapes (B, N, H): the ViT-L/16 cell's (its row in the
 # kernel table) and ViT-B/16's at serving_defaults' max_batch
@@ -2374,6 +2394,108 @@ def phase_attention(dev, flush, peaks) -> dict:
         del qkv, q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rows
+
+
+# epilogue_fused's shapes and forms, (rows, C, product dtype, bias,
+# activation, residual): every one the three benchmark cells run; the first
+# two are the kernel table's row (ResNet-50's stage-1 conv3 and ViT-L/16's
+# mlp1), and the first EPILOGUE_TIMED are also timed
+EPILOGUE_SHAPES = (
+    ((256, 56, 56), 256, "bf16", True, "relu", True),
+    ((128 * 577,), 4096, "bf16", True, "gelu", False),
+    ((256, 112, 112), 64, "bf16", True, "relu", False),
+    ((256, 56, 56), 64, "bf16", True, "relu", False),
+    ((256, 56, 56), 256, "bf16", True, None, False),
+    ((256, 56, 56), 128, "bf16", True, "relu", False),
+    ((256, 28, 28), 128, "bf16", True, "relu", False),
+    ((256, 28, 28), 512, "bf16", True, "relu", True),
+    ((256, 28, 28), 512, "bf16", True, None, False),
+    ((256, 28, 28), 256, "bf16", True, "relu", False),
+    ((256, 14, 14), 256, "bf16", True, "relu", False),
+    ((256, 14, 14), 256, "f32", False, "relu", False),
+    ((256, 14, 14), 1024, "bf16", True, "relu", True),
+    ((256, 14, 14), 1024, "bf16", True, None, False),
+    ((256, 14, 14), 512, "bf16", True, "relu", False),
+    ((256, 7, 7), 512, "bf16", True, "relu", False),
+    ((256, 7, 7), 512, "f32", False, "relu", False),
+    ((256, 7, 7), 2048, "bf16", True, "relu", True),
+    ((256, 7, 7), 2048, "bf16", True, None, False),
+    ((128 * 576,), 1024, "bf16", True, None, False),
+    ((128 * 577,), 3072, "bf16", True, None, False),
+    ((128 * 577,), 1024, "bf16", True, None, True),
+    ((256, 55, 55), 96, "bf16", True, None, False),
+    ((256, 27, 27), 256, "bf16", True, None, False),
+    ((256, 13, 13), 384, "bf16", True, None, False),
+    ((256, 13, 13), 256, "bf16", True, None, False),
+)
+EPILOGUE_TIMED = 3  # the first shapes, timed; the others checked only
+
+
+def phase_epilogue(dev, flush, peaks) -> tuple[dict, dict]:
+    """epilogue_fused against its plain version (torch's chain of casts,
+    adds, clamp_min and exact gelu, on the card) at EPILOGUE_SHAPES, bit
+    for bit but where the card's erff differs from the one torch was built
+    with (GELU only, one bf16 step at most: counted); the first
+    EPILOGUE_TIMED shapes timed beside the chain. Bound: one read of the
+    product (and of the residual) and one write of the output. The chain is
+    torch's own kernels, so it is the library column too. Returns
+    ({"epilogue_fused": the row of the first two shapes}, the launches)."""
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.ops.cuda import epilogue_fused as ep
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    row = new_row()
+    cuda_ops.reset_launches()
+    for i, (rows_, c, y_name, has_bias, act, has_res) in enumerate(
+            EPILOGUE_SHAPES):
+        shape = (*rows_, c)
+        y_dtype = torch.bfloat16 if y_name == "bf16" else torch.float32
+        y = (torch.randn(shape, generator=gen, device=dev) * 2).to(y_dtype)
+        args = dict(
+            bias=(torch.randn(c, generator=gen, device=dev) * 0.1
+                  if has_bias else None),
+            act=act,
+            residual=(torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16) if has_res else None))
+        got = ep.epilogue_fused(y, **args)
+        want = ep.epilogue_plain(y, torch.bfloat16, **args)
+        same = (got.view(torch.int16) == want.view(torch.int16)) | (
+            got.isnan() & want.isnan())
+        differ = int((~same).sum())
+        worst = 0.0
+        if differ:
+            step = (got.float() - want.float()).abs()[~same]
+            ulp = want.float().abs()[~same].clamp_min(1e-38) * 2.0 ** -7
+            worst = float((step / ulp).max())
+        label = (f"{shape} {y_name} bias={has_bias} act={act} "
+                 f"residual={has_res}")
+        log(f"check epilogue_fused {label}: elements differing from the "
+            f"chain={differ} of {got.numel()} (largest in bf16 steps "
+            f"{worst:.3f})")
+        if differ and (act != "gelu" or worst > 1.0):
+            raise AssertionError(f"epilogue_fused {label}: {differ} "
+                                 f"elements differ from the chain")
+        if i < EPILOGUE_TIMED:
+            ms = time_ms(lambda: ep.epilogue_fused(y, **args), flush)
+            plain_ms = time_ms(
+                lambda: ep.epilogue_plain(y, torch.bfloat16, **args), flush)
+            nbytes = y.numel() * (y.element_size() + 2 + 2 * has_res)
+            b_ms, by = bound(nbytes, 0.0, peaks["bf16"], peaks)
+            log(f"time epilogue_fused {label} kernel_ms={ms:.5f} "
+                f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} bound_by={by} "
+                f"(bytes {nbytes}) share={b_ms / ms:.3f} "
+                f"GB/s={nbytes / ms / 1e6:.1f}")
+            if i < 2:
+                add_timing(row, 1, ms, plain_ms, plain_ms, b_ms, nbytes,
+                           0.0, peaks["bf16"], peaks)
+        del y, got, want, same, args
+    counts = cuda_ops.launches()
+    if counts["epilogue_fused"] < len(EPILOGUE_SHAPES):
+        raise AssertionError(f"epilogue_fused launched "
+                             f"{counts['epilogue_fused']} times for "
+                             f"{len(EPILOGUE_SHAPES)} shapes")
+    torch.cuda.empty_cache()
+    return {"epilogue_fused": close_row(row)}, counts
 
 
 def phase_vit(dev, gpu_name, vparams) -> dict:
@@ -2467,7 +2589,8 @@ def phase_vit(dev, gpu_name, vparams) -> dict:
         label = f"vit_b16 family classify_batch memory B={IO_FAMILY_BMPS}"
         counts["io vit_b16 family"] = io_drive(
             f"{label} (run F)", fam, lambda: fam.classify_batch(paths), 3,
-            {"pq_decode": 14, "attention_fused": 12}, IO_FAMILY_BMPS)
+            {"pq_decode": 14, "attention_fused": 12, "epilogue_fused": 49},
+            IO_FAMILY_BMPS)
         x_in = fam.pre.load_batch(paths)
         profile_steps(lambda: fam._probs(x_in), 3, f"{label} forward (run F)")
         got = torch.from_numpy(fam._probs(x_in))
@@ -3050,7 +3173,7 @@ def phase_serve(spec, params, rparams, geo, dev, peaks,
             run = serve_run("resnet50 memory tensors", clients,
                             r_url + "/classify", reng,
                             os.path.join(d, "resnet50.npy"), c, n,
-                            {"pq_conv_fused": 7, "pq_decode": 17})
+                            RESNET50_MEMORY)
             counts["serve resnet50 memory"] = run["counts"]
             check(hold_responses, "resnet50 memory vs FamilyClassifier "
                   "memory", run["results"], ref_resnet, 5e-3, 0.99)
@@ -3405,10 +3528,10 @@ def phase_quantize(spec, params, dev, gpu_name: str,
         x_all = torch.from_numpy(synth.random_input(spec, QUANT_BATCH,
                                                     seed=6)).to(dev)
         fwd_probs = {}
-        for impl, b, per_fwd in (("auto", QUANT_BATCH, LRNS),
+        for impl, b, per_fwd in (("auto", QUANT_BATCH, ALEXNET_AUTO),
                                  ("memory", QUANT_BATCH,
-                                  {**LRNS, "pq_decode": 1}),
-                                 ("lut", QUANT_LUT_BATCH, LRNS)):
+                                  {**ALEXNET_AUTO, "pq_decode": 1}),
+                                 ("lut", QUANT_LUT_BATCH, ALEXNET_AUTO)):
             x = x_all[:b]
             t0 = time.perf_counter()
             prepared, conv_impls, fc_impls = prepare.prepare_params(
@@ -3471,8 +3594,7 @@ def phase_quantize(spec, params, dev, gpu_name: str,
                 f"quantize {family} {mode} B={QUANT_BATCH}",
                 lambda: fam._fwd(fam.params, x), QUANT_BATCH,
                 fam.spec.num_classes, steps=5,
-                per_fwd=({"pq_conv_fused": 7, "pq_decode": 17} if memory
-                         else {}),
+                per_fwd=RESNET50_MEMORY if memory else EPILOGUES_RESNET50,
                 gpu_name=gpu_name, resident=tensor_bytes(fam.params),
                 prep_s=prep_s, prof_steps=0)
             if memory:
@@ -3614,8 +3736,8 @@ def phase_quantize(spec, params, dev, gpu_name: str,
         probs = {}
         for mode, b, per_fwd in (("memory", QUANT_BATCH, ALEXNET_MEMORY_B256),
                                  ("memory", 1, ALEXNET_MEMORY_B1),
-                                 ("auto", QUANT_BATCH, LRNS),
-                                 ("auto", 1, LRNS)):
+                                 ("auto", QUANT_BATCH, ALEXNET_AUTO),
+                                 ("auto", 1, ALEXNET_AUTO)):
             t0 = time.perf_counter()
             clf = Classifier.from_checkpoint(
                 out, conv_impl=mode, fc_impl=mode, batch_hint=b,
@@ -3650,23 +3772,25 @@ def phase_quantize(spec, params, dev, gpu_name: str,
 
 PROFILE_RUNS = (  # (label, profile flags, the kernels that must launch)
     ("alexnet auto B=256", ["--model", "alexnet", "--batch", "256"],
-     ("lrn_fused",)),
+     ("lrn_fused", "epilogue_fused")),
     ("alexnet auto B=1", ["--model", "alexnet", "--batch", "1"],
-     ("lrn_fused",)),
+     ("lrn_fused", "epilogue_fused")),
     ("alexnet memory B=256", ["--model", "alexnet", "--batch", "256",
                               "--conv-impl", "memory", "--fc-impl",
                               "memory"],
-     ("lrn_fused", "pq_decode", "pq_fc_fused")),
+     ("lrn_fused", "pq_decode", "pq_fc_fused", "epilogue_fused")),
     ("alexnet memory B=1", ["--model", "alexnet", "--batch", "1",
                             "--conv-impl", "memory", "--fc-impl", "memory"],
-     ("lrn_fused", "pq_decode", "pq_lut_gather")),
+     ("lrn_fused", "pq_decode", "pq_lut_gather", "epilogue_fused")),
     ("alexnet int8 B=256", ["--model", "alexnet", "--batch", "256",
                             "--dtype", "int8"], ("lrn_fused",)),
     ("alexnet pallas B=256", ["--model", "alexnet", "--batch", "256",
-                              "--fc-impl", "pallas"], ("lrn_fused", "pq_fc")),
+                              "--fc-impl", "pallas"],
+     ("lrn_fused", "pq_fc", "epilogue_fused")),
     ("resnet50 memory B=64", ["--model", "resnet50", "--batch", "64",
                               "--conv-impl", "memory", "--fc-impl",
-                              "memory"], ("pq_conv_fused", "pq_decode")),
+                              "memory"],
+     ("pq_conv_fused", "pq_decode", "epilogue_fused")),
 )
 PROFILE_RATIO = (0.5, 2.0)  # sum of the rows / the step's device-busy ms
 PROFILE_ROW = re.compile(r"^\[\s*\d+\] (\S+)\s+(\S+)\s+\(.*?\)\s+([\d.]+) us")
@@ -3839,10 +3963,13 @@ PARALLEL_CASE_KERNELS = {
     "fc6 ring": ("pq_lut_gather",),
     "fc6 dp lutgather": ("pq_lut_gather",),
     "fc6 dp fgather": ("pq_fc_fused",),
-    "alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused"),
-    "engine alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused"),
-    "resnet50 memory": ("pq_conv_fused", "pq_decode"),
-    "vit_b16 memory pipeline": ("pq_decode", "attention_fused"),
+    "alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused",
+                       "epilogue_fused"),
+    "engine alexnet memory": ("lrn_fused", "pq_decode", "pq_fc_fused",
+                              "epilogue_fused"),
+    "resnet50 memory": ("pq_conv_fused", "pq_decode", "epilogue_fused"),
+    "vit_b16 memory pipeline": ("pq_decode", "attention_fused",
+                                "epilogue_fused"),
 }
 
 
@@ -4181,7 +4308,7 @@ def a13_store(spec, params, rparams, d: str, dev) -> dict:
     counts["a13 resnet50 dcp"] = io_drive(
         f"a13 resnet50 dcp family checkpoint memory B={A13_FAMILY_BATCH}",
         fams["dcp"], lambda: fams["dcp"]._probs(xr), 3,
-        {"pq_conv_fused": 7, "pq_decode": 17}, A13_FAMILY_BATCH)
+        RESNET50_MEMORY, A13_FAMILY_BATCH)
     if not np.array_equal(fams["dcp"]._probs(xr), fams["npz"]._probs(xr)):
         raise AssertionError("a13 resnet50: the dcp copy's probabilities "
                              "differ from the npz copy's")
@@ -4237,7 +4364,9 @@ def a13_lanepad(spec, params, dev, gpu_name: str, smi: str) -> None:
             probs[name], _ = drive(label, fwd, b, spec.num_classes,
                                    steps=10 if b > 1 else 50,
                                    per_fwd={"lrn_fused": 2 if name ==
-                                            "unpadded" else 1},
+                                            "unpadded" else 1,
+                                            **(EPILOGUES_ALEXNET_DENSE
+                                               if dtype == "bf16" else {})},
                                    gpu_name=gpu_name,
                                    resident=tensor_bytes(p), prep_s=prep_s,
                                    prof_steps=0)
@@ -4510,6 +4639,9 @@ def main() -> int:
     only.add_argument("--only-lut-lrn", action="store_true",
                       help="stop after the build, pq_lut_gather and "
                            "lrn_fused")
+    only.add_argument("--only-epilogue", action="store_true",
+                      help="stop after the build and epilogue_fused at the "
+                           "benchmark cells' shapes")
     only.add_argument("--only-int8", action="store_true",
                       help="stop after the build, the f32 conv check and "
                            "phase 8 (int8)")
@@ -4589,6 +4721,11 @@ def main() -> int:
 
     if args.gather_times:
         phase_gather_times(geo, spec, dev, flush)
+        return 0
+    if args.only_epilogue:
+        rows, counts = phase_epilogue(dev, flush, peaks)
+        log(json.dumps({"partial": "epilogue_fused only", "rows": rows,
+                        "launches": counts}))
         return 0
     if args.only_serve:
         del flush
@@ -4670,6 +4807,8 @@ def main() -> int:
     rows |= new_rows
     add_counts(general_counts, more_general)
     rows |= phase_attention(dev, flush, peaks)
+    epilogue_rows, epilogue_counts = phase_epilogue(dev, flush, peaks)
+    rows |= epilogue_rows
     del flush
 
     # phases 5-7: the paths, end to end
@@ -4698,6 +4837,7 @@ def main() -> int:
     # phase 15: the dcp store, the lane pad, the reference harness
     counts |= phase_a13(spec, params, rparams, dev, gpu_name, smi)
     counts["lrn_fused entry point"] = lrn_counts
+    counts["epilogue_fused entry point"] = epilogue_counts
     counts["general entry points"] = general_counts
     owners_of = {}
     for label, _, owned in PROFILE_RUNS:
@@ -4746,6 +4886,14 @@ def main() -> int:
         "attention_fused": ("vit_b16 decode", "vit_b16 memory",
                             "vit_b16 int8", "vit_l16 memory",
                             "vit_l16 decode", "io vit_b16 family"),
+        "epilogue_fused": ("epilogue_fused entry point", "alexnet auto",
+                           "alexnet memory", "alexnet pallas",
+                           "resnet50 memory", "vit_b16 decode",
+                           "vit_b16 memory", "vit_l16 memory",
+                           "vit_l16 decode", "io alexnet classify",
+                           "io resnet50 family", "io vit_b16 family",
+                           "serve alexnet memory", "serve resnet50 memory",
+                           "a13 reference layout"),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),
         "pq_lut_gather_general": ("general entry points",),
@@ -4776,6 +4924,9 @@ def main() -> int:
         "attention_fused": ("qcnn_tpu_torch/csrc/attention_fused.cu",
                             "none: XLA's attention, qcnn_tpu/models/vit.py "
                             "_masked_attention"),
+        "epilogue_fused": ("qcnn_tpu_torch/csrc/epilogue_fused.cu",
+                           "none: XLA's bias add, activation and residual "
+                           "add after each product"),
         "pq_fc_fused_general": (
             "qcnn_tpu_torch/csrc/pq_fc_fused_general.cu",
             "qcnn_tpu/ops/pallas/pq_fc_fused.py:125"),

@@ -11,11 +11,12 @@ In memory mode (``prepare_params(memory=True)``) each PQ conv runs the
 route ``ops.conv.memory_fused_route`` picks for it (the ``pq_conv_fused``
 kernel for qualifying 3x3 convs, the ``pq_decode`` kernel elsewhere) and
 the fc runs ``common.fc_memory_impl``. Every conv and the fc go through
-``ops.conv.conv_layer`` / ``conv_product`` and ``ops.fc.fc_layer``, which
-read a layer's format. In int8 (``prepare_params(dtype=
-torch.int8)``) dense and decoded layers run the int8 conv and fc with the
-dynamic amax of each input, as the JAX package's families do; memory mode
-keeps bf16 codebooks there.
+``ops.conv.conv_layer`` and ``ops.fc.fc_layer``, which read a layer's
+format; a conv's ReLU, and the shortcut added before the block's last
+ReLU, run in its product's epilogue (``ops.fc.emit``). In int8
+(``prepare_params(dtype=torch.int8)``) dense and decoded layers run the
+int8 conv and fc with the dynamic amax of each input, as the JAX
+package's families do; memory mode keeps bf16 codebooks there.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from qcnn_tpu_torch.models.prepare import (
 )
 from qcnn_tpu_torch.ops import conv as conv_ops
 from qcnn_tpu_torch.ops import fc as fc_ops
-from qcnn_tpu_torch.ops.misc import caffe_max_pool, relu
+from qcnn_tpu_torch.ops.misc import caffe_max_pool
 from qcnn_tpu_torch.quantizer.kmeans import split
 from qcnn_tpu_torch.quantizer.opq import inverse_permutation
 from qcnn_tpu_torch.quantizer.pq import quantize_conv_layer, quantize_fc_layer
@@ -179,19 +180,17 @@ def _block_routes(inputs: dict, block) -> dict:
 
 def _run_block(x, block, stride: int, bottleneck: bool, cast, key: str):
     """One residual block (shared by forward and forward_segments); ``key``
-    ("s{stage}b{block}") names its spans (``utils.spans``). Every conv of
-    the block that decodes its weight in the step does so in one
-    ``pq_decode`` launch at the head of the block; the weights live until
-    the block returns."""
+    ("s{stage}b{block}") names its spans (``utils.spans``); its convs emit
+    ``cast.dtype``. Every conv of the block that decodes its weight in the
+    step does so in one ``pq_decode`` launch at the head of the block; the
+    weights live until the block returns. The ReLUs and the shortcut run
+    in the convs' epilogues."""
     od = getattr(cast, "dtype", None)
     inputs = _block_inputs(x, block, stride, bottleneck, od)
     routes = _block_routes(inputs, block)
     decoded = conv_ops.instep_decodes(routes)
 
-    def conv(v, name, layer=conv_ops.conv_layer):
-        """Conv ``name`` on v through ``layer``: ``conv_layer`` emits the
-        activation dtype, ``conv_product`` leaves an int8 conv's float32
-        values for the ReLU after it to cast."""
+    def conv(v, name, act=None, residual=None):
         shape, dtype, st, pad = inputs[name]
         if tuple(v.shape) != shape or v.dtype != dtype:
             raise RuntimeError(
@@ -199,31 +198,23 @@ def _run_block(x, block, stride: int, bottleneck: bool, cast, key: str):
                 f"was decided for {shape} {dtype}")
         impl = routes[name][1] if name in routes else "dense"
         with span("conv", key, name):
-            return layer(v, block[name], impl=impl, stride=st, pad=pad,
-                         out_dtype=od, decoded=decoded.get(name))
-
-    def relu_cast(v, name):
-        with span("relu", key, name):
-            return cast(relu(v))
+            return conv_ops.conv_layer(
+                v, block[name], impl=impl, stride=st, pad=pad, out_dtype=od,
+                decoded=decoded.get(name), act=act, residual=residual)
 
     shortcut = conv(x, "proj") if "proj" in block else x
-    y = relu_cast(conv(x, "conv1", conv_ops.conv_product), "conv1")
+    y = conv(x, "conv1", "relu")
     if bottleneck:
-        y = relu_cast(conv(y, "conv2", conv_ops.conv_product), "conv2")
-        y = conv(y, "conv3")
-    else:
-        y = conv(y, "conv2")
-    with span("residual", key):
-        return relu(y + shortcut)
+        y = conv(y, "conv2", "relu")
+    return conv(y, "conv3" if bottleneck else "conv2", "relu", shortcut)
 
 
 def _run_stem(x, params, cast):
     with span("conv", "stem"):
-        x = conv_ops.conv_product(x, params["stem"], impl="memory_fused",
-                                  stride=2, pad=3,
-                                  out_dtype=getattr(cast, "dtype", None))
-    with span("relu", "stem"):
-        x = cast(relu(x))
+        x = conv_ops.conv_layer(x, params["stem"], impl="memory_fused",
+                                stride=2, pad=3,
+                                out_dtype=getattr(cast, "dtype", None),
+                                act="relu")
     # floor-mode pool: 112 -> 56, as torchvision
     with span("pool", "stem"):
         return caffe_max_pool(x, kernel=3, stride=2, pad=1, ceil_mode=False)

@@ -207,17 +207,21 @@ def _masked_attention(q, k, v, n_pad: int = 0, logits_dtype=torch.float32,
     return fc_ops.matmul(att, v, out_dtype).transpose(1, 2)
 
 
-def _proj(x, p, out_dtype=None, impl=None, decoded=None):
+def _proj(x, p, out_dtype=None, impl=None, decoded=None, act=None,
+          residual=None):
     """(…, Cin) @ gemm -> (…, Cout) in ``out_dtype`` through
-    ``ops.fc.fc_layer``.
+    ``ops.fc.fc_layer``, with ``residual`` (…, Cout) and ``act`` after the
+    bias in its epilogue.
 
     impl: the strategy :func:`_block_routes` resolved (None resolves
     ``common.fc_memory_impl`` on the rows here: projections see B x tokens
     rows); decoded: the weight from the block's grouped decode."""
     x2 = x.reshape(-1, x.shape[-1])
+    if residual is not None:
+        residual = residual.reshape(x2.shape[0], -1)
     y = fc_ops.fc_layer(
         x2, p, impl=impl or common.fc_memory_impl(x2.shape[0], p, x2.dtype),
-        out_dtype=out_dtype, decoded=decoded)
+        out_dtype=out_dtype, decoded=decoded, act=act, residual=residual)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
@@ -289,8 +293,9 @@ def _block_routes(inputs: dict, blk) -> dict:
 def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
     """One transformer block (shared by forward and forward_segments). The
     projections that decode their weight in the step do so in one
-    ``pq_decode`` launch at the head of the block. key: the block's name
-    ("blk{i}"), which its spans carry."""
+    ``pq_decode`` launch at the head of the block; the two residual adds
+    and the GELU run in the epilogues of out, mlp2 and mlp1. key: the
+    block's name ("blk{i}"), which its spans carry."""
     b = x.shape[0]
     nh = spec.heads
     hd = spec.dim // nh
@@ -299,7 +304,7 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
     routes = _block_routes(inputs, blk)
     decoded = instep_decodes(routes)
 
-    def proj(v, name):
+    def proj(v, name, act=None, residual=None):
         if (v.shape[0] * v.shape[1], v.shape[2], v.dtype) != inputs[name]:
             raise RuntimeError(
                 f"{name}: input {tuple(v.shape)} {v.dtype}, but its route "
@@ -307,7 +312,8 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
         impl = routes[name][1] if name in routes else None
         with span("fc", key, name):
             return _proj(v, blk[name], out_dtype=od, impl=impl,
-                         decoded=decoded.get(name))
+                         decoded=decoded.get(name), act=act,
+                         residual=residual)
 
     with span("layernorm", key, "ln1"):
         y = _layernorm(x, blk["ln1"])
@@ -316,18 +322,12 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
         q, k, v = (t.reshape(b, -1, nh, hd) for t in qkv.chunk(3, dim=-1))
         o = _masked_attention(q, k, v, 0, attn_logits_dtype, out_dtype=od)
         o = cast(o.reshape(b, -1, spec.dim))
-    o = proj(o, "out")
-    with span("residual", key, "attn"):
-        x = x + o
+    x = proj(o, "out", residual=x)
     with span("layernorm", key, "ln2"):
         y = _layernorm(x, blk["ln2"])
-    y = proj(y, "mlp1")
     # exact (erf) GELU, the timm/torch semantics
-    with span("gelu", key):
-        y = cast(F.gelu(y))
-    y = proj(y, "mlp2")
-    with span("residual", key, "mlp"):
-        return x + y
+    y = proj(y, "mlp1", act="gelu")
+    return proj(y, "mlp2", residual=x)
 
 
 def _run_head(x, params, with_softmax: bool):

@@ -28,10 +28,11 @@ LUT formulation as one convolution of the LUT with the one-hot assignments
 Float32 convolutions run with TF32 off, whatever the caller's global
 setting: cuDNN's default would round f32 operands to TF32.
 
-The forwards reach a conv through :func:`conv_layer` (:func:`conv_product`
-where a ReLU casts after the product), the one place that reads a layer
-dict's format: PQ, int8 or dense. :func:`instep_decodes` decodes a group
-of convs and FCs in one ``pq_decode`` launch.
+The forwards reach a conv through :func:`conv_layer`, the one place that
+reads a layer dict's format: PQ, int8 or dense. Its ``act`` and
+``residual`` (a ReLU, a shortcut) join the bias in the product's one
+epilogue (``ops.fc.emit``). :func:`instep_decodes` decodes a group of
+convs and FCs in one ``pq_decode`` launch.
 
 The int8 conv (:func:`conv_dense_int8`) has no library convolution on the
 card (cuDNN takes no int8 conv through torch, and ``F.unfold`` no int8), so
@@ -46,7 +47,12 @@ import torch
 import torch.nn.functional as F
 
 from qcnn_tpu_torch.ops import lut as lut_ops
-from qcnn_tpu_torch.ops.cuda import pq_conv_fused, pq_decode, pq_fc_fused
+from qcnn_tpu_torch.ops.cuda import (
+    epilogue_fused,
+    pq_conv_fused,
+    pq_decode,
+    pq_fc_fused,
+)
 from qcnn_tpu_torch.ops.fc import (
     INT_MM_MIN_ROWS,
     check_gdecode_codewords,
@@ -151,12 +157,15 @@ def conv_dense(
     space_to_depth: bool = False,
     kernel_layout: str = "HWIO",
     out_dtype=None,
+    act=None,
+    residual=None,
 ) -> torch.Tensor:
     """x: (B,H,W,Cin), kernel (kh,kw,Cin/groups,Cout) -> (B,Ho,Wo,Cout).
 
     Computes in the kernel's dtype with float32 accumulation, emitted in
     ``out_dtype`` (float32 when None), in which the bias is added — as the
-    JAX package's ``preferred_element_type=out_dtype``.
+    JAX package's ``preferred_element_type=out_dtype`` — then ``residual``
+    (B,Ho,Wo,Cout) and ``act`` (``ops.fc.emit``).
 
     kernel_layout: any permutation of "HWIO" naming the kernel's axes.
     space_to_depth=True rewrites a strided small-Cin stem conv (HWIO
@@ -202,10 +211,8 @@ def conv_dense(
                          groups=groups)
     if out_hw is not None:
         y = y[:, :, :out_hw[0], :out_hw[1]]
-    with span("epilogue"):
-        y = y.to(out_dtype)
-        y = y + bias.to(out_dtype)[:, None, None]
-    return y.permute(0, 2, 3, 1)
+    return emit(y.permute(0, 2, 3, 1), out_dtype, bias=bias, act=act,
+                residual=residual)
 
 
 def int8_kernel_matrix(kernel_q: torch.Tensor) -> torch.Tensor:
@@ -305,7 +312,7 @@ def conv_dense_int8(x: torch.Tensor, kernel_q: torch.Tensor,
 def pq_conv_decode(
     x: torch.Tensor, params: dict, *, stride: int, pad: int, groups: int = 1,
     layout: str | None = None, out_dtype=None,
-    decoded: torch.Tensor | None = None,
+    decoded: torch.Tensor | None = None, act=None, residual=None,
 ) -> torch.Tensor:
     """PQ conv via a kernel decode + dense conv. layout=None decodes with
     the plain gather (HWIO); a layout name ('hwio', 'ohwi', 'hwoi', 'iohw')
@@ -325,7 +332,8 @@ def pq_conv_decode(
             params["codebooks"], params["assignments"], cg, layout=layout)
     return conv_dense(
         x, kernel, params["bias"], stride=stride, pad=pad, groups=groups,
-        kernel_layout=layout.upper(), out_dtype=out_dtype,
+        kernel_layout=layout.upper(), out_dtype=out_dtype, act=act,
+        residual=residual,
     )
 
 
@@ -349,7 +357,8 @@ def _gemm_wins(x_shape, cout: int, kh: int, kw: int, groups: int,
 
 
 def pq_conv_gemm(x: torch.Tensor, params: dict, *, stride: int, pad: int,
-                 groups: int = 1, out_dtype=None) -> torch.Tensor:
+                 groups: int = 1, out_dtype=None, act=None,
+                 residual=None) -> torch.Tensor:
     """In-step decode + im2col GEMM (qcnn_tpu/ops/conv.py:308-361).
 
       patches (B*Ho*Wo, Cin*kh*kw)  [F.unfold on the NCHW view: feature
@@ -379,12 +388,13 @@ def pq_conv_gemm(x: torch.Tensor, params: dict, *, stride: int, pad: int,
     wo = (w_ + 2 * pad - kw) // stride + 1
     out = matmul(patches.transpose(1, 2).reshape(b * ho * wo, -1), w2,
                  out_dtype)
-    with span("epilogue"):
-        return out.reshape(b, ho, wo, cout) + params["bias"].to(out.dtype)
+    return emit(out.reshape(b, ho, wo, cout), out.dtype, bias=params["bias"],
+                act=act, residual=residual)
 
 
 def pq_conv_lut(x: torch.Tensor, params: dict, *, stride: int, pad: int,
-                groups: int = 1, out_dtype=None) -> torch.Tensor:
+                groups: int = 1, out_dtype=None, act=None,
+                residual=None) -> torch.Tensor:
     """PQ conv as LUT build + one-hot conv over the LUT channels
     (qcnn_tpu/ops/conv.py:364-408).
 
@@ -407,11 +417,12 @@ def pq_conv_lut(x: torch.Tensor, params: dict, *, stride: int, pad: int,
         cout, kh, kw, s * k)
     return conv_dense(lut_all, onehot, params["bias"], stride=stride,
                       pad=pad, groups=groups, kernel_layout="OHWI",
-                      out_dtype=out_dtype)
+                      out_dtype=out_dtype, act=act, residual=residual)
 
 
 def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
-                   groups: int, out_dtype) -> torch.Tensor:
+                   groups: int, out_dtype, act=None,
+                   residual=None) -> torch.Tensor:
     """A 1x1 conv as an FC over the flattened pixels, through the
     ``pq_fc_fused`` kernel (decode name "gather"); the stride is a slice of
     x, exact for a 1x1 kernel with pad 0."""
@@ -428,7 +439,7 @@ def _pq_conv_fc1x1(x: torch.Tensor, params: dict, *, stride: int, pad: int,
             "bias": params["bias"]}
     y = pq_fc_fused.pq_fc_fused(x.reshape(b * h * w, cin), fc_p,
                                 decode="gather").reshape(b, h, w, -1)
-    return emit(y, out_dtype)
+    return emit(y, out_dtype, act=act, residual=residual)
 
 
 def pq_conv(
@@ -441,12 +452,16 @@ def pq_conv(
     impl: str = "decode",
     out_dtype=None,
     decoded: torch.Tensor | None = None,
+    act=None,
+    residual=None,
 ) -> torch.Tensor:
-    """PQ conv by strategy name (see the module docstring). decoded: the
-    layer's weight from a grouped decode, for the in-step decode impls
+    """PQ conv by strategy name (see the module docstring), emitted in
+    ``out_dtype`` with ``residual`` and ``act`` after the bias. decoded:
+    the layer's weight from a grouped decode, for the in-step decode impls
     (:func:`instep_decodes`)."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown pq_conv impl: {impl}")
+    tail = dict(act=act, residual=residual)
     if impl in ("gdecode", "gdecode_iohw"):
         check_gdecode_codewords(params["codebooks"])
     if "perm" in params:
@@ -466,7 +481,7 @@ def pq_conv(
                 "for the auto-fallback mix)")
         out = pq_conv_fused.pq_conv_fused(x, params, stride=stride, pad=pad,
                                           groups=groups)
-        return emit(out, out_dtype)
+        return emit(out, out_dtype, act=act, residual=residual)
     if impl == "memory_fused":
         route = memory_fused_route(params, x.shape, x.dtype, stride=stride,
                                    pad=pad, groups=groups)
@@ -474,58 +489,56 @@ def pq_conv(
             # x is permuted already: the recursion must not see 'perm'
             noperm = {k: v for k, v in params.items() if k != "perm"}
             return pq_conv(x, noperm, stride=stride, pad=pad, groups=groups,
-                           impl=route, out_dtype=out_dtype)
+                           impl=route, out_dtype=out_dtype, **tail)
         impl = route
     if impl == "fc1x1":
         return _pq_conv_fc1x1(x, params, stride=stride, pad=pad,
-                              groups=groups, out_dtype=out_dtype)
+                              groups=groups, out_dtype=out_dtype, **tail)
     if impl == "lut":
         return pq_conv_lut(x, params, stride=stride, pad=pad, groups=groups,
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, **tail)
     if impl in ("gemm", "memory"):
         cout, kh, kw, _ = params["assignments"].shape
         if impl == "gemm" or _gemm_wins(x.shape, cout, kh, kw, groups,
                                         stride, pad):
             return pq_conv_gemm(x, params, stride=stride, pad=pad,
-                                groups=groups, out_dtype=out_dtype)
+                                groups=groups, out_dtype=out_dtype, **tail)
         impl = "indecode_ohwi"
     return pq_conv_decode(
         x, params, stride=stride, pad=pad, groups=groups,
         layout=_INSTEP_LAYOUTS.get(impl), out_dtype=out_dtype,
-        decoded=decoded,
+        decoded=decoded, **tail,
     )
-
-
-def conv_product(x: torch.Tensor, p: dict, *, impl: str, stride: int,
-                 pad: int, groups: int = 1, out_dtype=None,
-                 decoded: torch.Tensor | None = None) -> torch.Tensor:
-    """One conv layer's product by the format of its param dict: a PQ dict
-    (``codebooks``) through :func:`pq_conv` by ``impl`` (``decoded``: its
-    weight from a grouped decode), an int8 one (``kernel_q``) through
-    :func:`conv_dense_int8` with its ``act_scale`` and ``out_scale``, any
-    other through :func:`conv_dense`, whatever ``impl`` says. In
-    ``out_dtype``, but for an int8 conv's values, which stay float32:
-    :func:`conv_layer` casts them, and ResNet's convs before a ReLU cast
-    after it. The forwards read a conv's format here only."""
-    conv = dict(stride=stride, pad=pad, groups=groups)
-    if "codebooks" in p:
-        return pq_conv(x, p, impl=impl, out_dtype=out_dtype, decoded=decoded,
-                       **conv)
-    if "kernel_q" in p:
-        return conv_dense_int8(x, p["kernel_q"], p["scale"], p["bias"],
-                               act_scale=p.get("act_scale"),
-                               out_scale=p.get("out_scale"), **conv)
-    return conv_dense(x, p["kernel"], p["bias"], out_dtype=out_dtype, **conv)
 
 
 def conv_layer(x: torch.Tensor, p: dict, *, impl: str, stride: int,
                pad: int, groups: int = 1, out_dtype=None,
-               decoded: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`conv_product` emitted in ``out_dtype``
-    (``ops.fc.emit``)."""
-    return emit(conv_product(x, p, impl=impl, stride=stride, pad=pad,
-                             groups=groups, out_dtype=out_dtype,
-                             decoded=decoded), out_dtype)
+               decoded: torch.Tensor | None = None, act=None,
+               residual=None) -> torch.Tensor:
+    """One conv layer by the format of its param dict, emitted in
+    ``out_dtype`` with ``residual`` (the output's shape) and ``act``
+    ("relu" or "gelu") after the bias, in the product's one epilogue
+    (``ops.fc.emit``): a PQ dict (``codebooks``) through :func:`pq_conv`
+    by ``impl`` (``decoded``: its weight from a grouped decode), an int8
+    one (``kernel_q``) through :func:`conv_dense_int8` with its
+    ``act_scale`` and ``out_scale``, any other through :func:`conv_dense`,
+    whatever ``impl`` says. The forwards read a conv's format here only."""
+    conv = dict(stride=stride, pad=pad, groups=groups)
+    if "codebooks" in p:
+        return pq_conv(x, p, impl=impl, out_dtype=out_dtype, decoded=decoded,
+                       act=act, residual=residual, **conv)
+    if "kernel_q" in p:
+        y = conv_dense_int8(x, p["kernel_q"], p["scale"], p["bias"],
+                            act_scale=p.get("act_scale"),
+                            out_scale=p.get("out_scale"), **conv)
+        if act is not None and residual is None:
+            # an int8 conv's float32 values take their activation before
+            # the cast, as the family forwards have always run them
+            with span("epilogue"):
+                y, act = epilogue_fused.ACTIVATIONS[act](y), None
+        return emit(y, out_dtype, act=act, residual=residual, int8=True)
+    return conv_dense(x, p["kernel"], p["bias"], out_dtype=out_dtype,
+                      act=act, residual=residual, **conv)
 
 
 def instep_decodes(layers: dict) -> dict:

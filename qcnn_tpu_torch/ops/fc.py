@@ -12,8 +12,10 @@ Strategy names keep the JAX vocabulary. In-step decodes (``indecode``,
 ``decode`` are plain PyTorch.
 
 The forwards reach an FC through :func:`fc_layer`, the one place that reads
-a layer dict's format; it and ``ops.conv.conv_layer`` end with
-:func:`emit`, the one cast of a product to the activation dtype.
+a layer dict's format. Every product ends in :func:`emit`, the one
+epilogue: the cast to the activation dtype, the bias, the residual and the
+activation, in one ``epilogue_fused`` launch on the card where its route
+takes them (``ops.cuda.epilogue_fused``), else torch's chain.
 
 int8 execution (``fc_dense_int8``, shared with ``ops.conv``): symmetric
 per-tensor activation codes times per-output-channel weight codes, summed
@@ -30,6 +32,7 @@ import torch
 
 from qcnn_tpu_torch.ops import lut as lut_ops
 from qcnn_tpu_torch.ops.cuda import (
+    epilogue_fused,
     pq_decode,
     pq_fc as pq_fc_kernel,
     pq_fc_fused,
@@ -82,10 +85,11 @@ def matmul(x: torch.Tensor, weight: torch.Tensor, out_dtype) -> torch.Tensor:
 
 
 def fc_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-             out_dtype=None) -> torch.Tensor:
+             out_dtype=None, *, act=None, residual=None) -> torch.Tensor:
     """x: (B, Cin), weight: (Cin, Cout) -> (B, Cout). Computes in the
     weight's dtype with float32 accumulation; ``out_dtype`` is the emitted
-    dtype, in which the bias is added (float32 when None)."""
+    dtype, in which the bias is added (float32 when None), then
+    ``residual`` and ``act`` (:func:`emit`)."""
     if x.dtype == torch.int8:
         # int8 activations are quantized codes; a float op would read them
         # as values (qcnn_tpu/ops/fc.py:24-34)
@@ -96,9 +100,8 @@ def fc_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         )
     if x.dtype != weight.dtype:
         x = x.to(weight.dtype)
-    out = matmul(x, weight, out_dtype)
-    with span("epilogue"):
-        return out + bias.to(out.dtype)
+    return emit(matmul(x, weight, out_dtype), out_dtype, bias=bias, act=act,
+                residual=residual)
 
 
 def padded_k(k: int) -> int:
@@ -227,8 +230,8 @@ def fc_dense_int8(x: torch.Tensor, weight_q: torch.Tensor,
         return acc.float() * (x_scale * w_scale) + bias
 
 
-def pq_fc_onehot(x: torch.Tensor, params: dict, out_dtype=None
-                 ) -> torch.Tensor:
+def pq_fc_onehot(x: torch.Tensor, params: dict, out_dtype=None, *,
+                 act=None, residual=None) -> torch.Tensor:
     """PQ FC via the LUT and a one-hot contraction over (S, K)
     (qcnn_tpu/ops/fc.py:134-148), in plain PyTorch; float32 sums emitted in
     ``out_dtype`` (float32 when None), in which the bias is added."""
@@ -237,11 +240,9 @@ def pq_fc_onehot(x: torch.Tensor, params: dict, out_dtype=None
     lut = lut_ops.build_lut(x, codebooks)  # (B, S, K) float32
     onehot = torch.nn.functional.one_hot(
         params["assignments"].t().long(), k).float()  # (S, Cout, K)
-    out_dtype = out_dtype or torch.float32
     out = torch.einsum("bsk,sok->bo", lut, onehot)
-    with span("epilogue"):
-        out = out.to(out_dtype)
-        return out + params["bias"].to(out_dtype)
+    return emit(out, out_dtype or torch.float32, bias=params["bias"],
+                act=act, residual=residual)
 
 
 def pq_fc_gather(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -252,15 +253,18 @@ def pq_fc_gather(x: torch.Tensor, params: dict) -> torch.Tensor:
                                           params["bias"])
 
 
-def pq_fc_decode(x: torch.Tensor, params: dict, out_dtype=None) -> torch.Tensor:
+def pq_fc_decode(x: torch.Tensor, params: dict, out_dtype=None, *,
+                 act=None, residual=None) -> torch.Tensor:
     """PQ FC via a plain decode to dense + GEMM."""
     w = lut_ops.decode_fc_weight(params["codebooks"], params["assignments"],
                                  x.shape[-1])
-    return fc_dense(x, w, params["bias"], out_dtype=out_dtype)
+    return fc_dense(x, w, params["bias"], out_dtype=out_dtype, act=act,
+                    residual=residual)
 
 
 def pq_fc_indecode(x: torch.Tensor, params: dict, out_dtype=None,
-                   decoded: torch.Tensor | None = None) -> torch.Tensor:
+                   decoded: torch.Tensor | None = None, *, act=None,
+                   residual=None) -> torch.Tensor:
     """Memory-mode PQ FC: decode the dense weight inside the step with the
     ``pq_decode`` kernel, then the dense GEMM. Only the compressed params
     stay resident; the dense copy is a transient.
@@ -270,26 +274,28 @@ def pq_fc_indecode(x: torch.Tensor, params: dict, out_dtype=None,
     if decoded is None:
         decoded = pq_decode.decode_rows(params["codebooks"],
                                         params["assignments"], x.shape[-1])
-    return fc_dense(x, decoded.t(), params["bias"], out_dtype=out_dtype)
+    return fc_dense(x, decoded.t(), params["bias"], out_dtype=out_dtype,
+                    act=act, residual=residual)
 
 
 def pq_fc(x: torch.Tensor, params: dict, impl: str = "onehot",
-          out_dtype=None, decoded: torch.Tensor | None = None
-          ) -> torch.Tensor:
+          out_dtype=None, decoded: torch.Tensor | None = None, *,
+          act=None, residual=None) -> torch.Tensor:
     """PQ FC by strategy name. out_dtype: the dtype emitted by the one-hot
-    and decode-GEMM impls; the gather and kernel impls emit float32, which
-    :func:`fc_layer` casts. decoded: the layer's rows from
+    and decode-GEMM impls; the gather and kernel impls emit float32 (the
+    bias inside), which :func:`fc_layer` casts, but where ``act`` or
+    ``residual`` follows, which :func:`emit` applies after the cast to
+    ``out_dtype``. decoded: the layer's rows from
     ``ops.conv.instep_decodes``, for the in-step decode impls."""
     if "perm" in params:
         # OPQ input permutation (quantizer/opq.py): sub-spaces were fit on
         # w[:, perm], so every in-graph formulation consumes x[..., perm]
         x = torch.index_select(x, -1, params["perm"].long())
+    tail = dict(act=act, residual=residual)
     if impl == "onehot":
-        return pq_fc_onehot(x, params, out_dtype=out_dtype)
-    if impl == "gather":
-        return pq_fc_gather(x, params)
+        return pq_fc_onehot(x, params, out_dtype=out_dtype, **tail)
     if impl == "decode":
-        return pq_fc_decode(x, params, out_dtype=out_dtype)
+        return pq_fc_decode(x, params, out_dtype=out_dtype, **tail)
     if impl in ("indecode", "gdecode"):
         # the JAX package decodes 'indecode' by one-hot matmul and
         # 'gdecode' by its Pallas gather; both are the same bits, and both
@@ -297,45 +303,61 @@ def pq_fc(x: torch.Tensor, params: dict, impl: str = "onehot",
         if impl == "gdecode":
             check_gdecode_codewords(params["codebooks"])
         return pq_fc_indecode(x, params, out_dtype=out_dtype,
-                              decoded=decoded)
-    if impl == "pallas":
-        return pq_fc_kernel.pq_fc_pallas(x, params)
-    if impl == "lutgather":
-        return pq_lut_gather.pq_fc_lut_gather(x, params)
-    if impl == "fused":
-        return pq_fc_fused.pq_fc_fused(x, params, decode="select")
-    if impl == "fgather":
-        return pq_fc_fused.pq_fc_fused(x, params, decode="gather")
-    raise ValueError(f"unknown pq_fc impl: {impl}")
+                              decoded=decoded, **tail)
+    if impl == "gather":
+        y = pq_fc_gather(x, params)
+    elif impl == "pallas":
+        y = pq_fc_kernel.pq_fc_pallas(x, params)
+    elif impl == "lutgather":
+        y = pq_lut_gather.pq_fc_lut_gather(x, params)
+    elif impl in ("fused", "fgather"):
+        y = pq_fc_fused.pq_fc_fused(
+            x, params, decode="select" if impl == "fused" else "gather")
+    else:
+        raise ValueError(f"unknown pq_fc impl: {impl}")
+    if act is None and residual is None:
+        return y
+    return emit(y, out_dtype, **tail)
 
 
-def emit(y: torch.Tensor, out_dtype) -> torch.Tensor:
-    """A product as the activation between layers: cast to ``out_dtype``
-    (kept when None) in one pass under the ``epilogue`` span; int8 codes
-    (an ``out_scale``) stay codes. :func:`fc_layer`,
-    ``ops.conv.conv_layer`` and the fused routes of ``ops.conv.pq_conv``
-    end with it, and no other code casts a product."""
-    if out_dtype is None or y.dtype in (out_dtype, torch.int8):
+def emit(y: torch.Tensor, out_dtype, bias=None, act=None, residual=None,
+         *, int8: bool = False) -> torch.Tensor:
+    """A product as the activation between layers, under the ``epilogue``
+    span: cast to ``out_dtype`` (kept when None; int8 codes, an
+    ``out_scale``'s, stay codes), ``bias`` added in that dtype, then
+    ``residual`` added, then ``act`` ("relu" or exact "gelu"). On the card
+    a bf16 emission with something to fuse is one ``epilogue_fused``
+    launch (``ops.cuda.epilogue_fused.route``; not for an int8 layer's
+    values, ``int8``), else torch's chain in that order: the same bits.
+    Every product of :func:`fc_layer` and ``ops.conv.conv_layer`` ends
+    here: no other code of theirs casts a product or adds its bias."""
+    if (bias is None and act is None and residual is None
+            and (out_dtype is None or y.dtype in (out_dtype, torch.int8))):
         return y
     with span("epilogue"):
-        return y.to(out_dtype)
+        return epilogue_fused.epilogue(y, out_dtype, bias, act, residual,
+                                       int8=int8)
 
 
 def fc_layer(x: torch.Tensor, p: dict, *, impl: str, out_dtype=None,
-             decoded: torch.Tensor | None = None) -> torch.Tensor:
+             decoded: torch.Tensor | None = None, act=None,
+             residual=None) -> torch.Tensor:
     """One FC layer by the format of its param dict, emitted in
-    ``out_dtype`` (:func:`emit`): a PQ dict (``codebooks``) through
-    :func:`pq_fc` by ``impl`` (``decoded``: its rows from a grouped
-    decode), an int8 one (``weight_q``) through :func:`fc_dense_int8` with
-    its ``act_scale`` and ``out_scale``, any other through
-    :func:`fc_dense`, whatever ``impl`` says. The forwards read an FC's
-    format here only."""
+    ``out_dtype`` with ``residual`` and ``act`` after the bias
+    (:func:`emit`): a PQ dict (``codebooks``) through :func:`pq_fc` by
+    ``impl`` (``decoded``: its rows from a grouped decode), an int8 one
+    (``weight_q``) through :func:`fc_dense_int8` with its ``act_scale``
+    and ``out_scale``, any other through :func:`fc_dense`, whatever
+    ``impl`` says. The forwards read an FC's format here only."""
+    tail = dict(act=act, residual=residual)
     if "codebooks" in p:
-        y = pq_fc(x, p, impl=impl, out_dtype=out_dtype, decoded=decoded)
+        y = pq_fc(x, p, impl=impl, out_dtype=out_dtype, decoded=decoded,
+                  **tail)
     elif "weight_q" in p:
         y = fc_dense_int8(x, p["weight_q"], p["scale"], p["bias"],
                           act_scale=p.get("act_scale"),
                           out_scale=p.get("out_scale"))
+        return emit(y, out_dtype, int8=True, **tail)
     else:
-        y = fc_dense(x, p["weight"], p["bias"], out_dtype=out_dtype)
+        y = fc_dense(x, p["weight"], p["bias"], out_dtype=out_dtype, **tail)
     return emit(y, out_dtype)

@@ -127,11 +127,11 @@ def quantize_resnet_ec(
         if "proj" in src:
             quant("proj", a)
         if spec.bottleneck:
-            y = R.relu(conv(a, "conv1", stride=1, pad=0))
-            y = R.relu(conv(y, "conv2", stride=stride, pad=1))
+            y = conv(a, "conv1", stride=1, pad=0, act="relu")
+            y = conv(y, "conv2", stride=stride, pad=1, act="relu")
             quant("conv3", y)
         else:
-            y = R.relu(conv(a, "conv1", stride=stride, pad=1))
+            y = conv(a, "conv1", stride=stride, pad=1, act="relu")
             quant("conv2", y)
         out[key] = qblk
         a = R._run_block(a, rblk, stride, spec.bottleneck, cast, key)

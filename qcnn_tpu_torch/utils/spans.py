@@ -2,16 +2,16 @@
 
 ``span(kind, *where)`` marks one boundary of a forward: the step itself
 (``qcnn.forward``), its grouped decode (``qcnn.decode``), a layer's product
-(``qcnn.conv:<layer>``, ``qcnn.fc:<layer>``), the passes after a product
-that add its bias or cast its dtype (``qcnn.epilogue``), and the plain
-layers (``qcnn.lrn:<layer>``, ``qcnn.pool:<layer>``, ``qcnn.relu:<layer>``,
-``qcnn.softmax:<layer>``, ``qcnn.residual:<block>``). The ViT forward adds
-its input cast and embeddings (``qcnn.embed``), its LayerNorms
-(``qcnn.layernorm:blk<i>.ln1``, ``.ln2``, ``qcnn.layernorm:final``), each
-block's attention from the logits through the second product and its
-casts (``qcnn.attention:blk<i>``), its GELU (``qcnn.gelu:blk<i>``) and two
-residual adds (``qcnn.residual:blk<i>.attn``, ``.mlp``); its projections
-are ``qcnn.fc:blk<i>.qkv``, ``.out``, ``.mlp1``, ``.mlp2`` and
+(``qcnn.conv:<layer>``, ``qcnn.fc:<layer>``), the pass after a product
+that casts its dtype, adds its bias and the residual and applies the
+activation (``qcnn.epilogue``: ResNet's ReLUs and shortcuts, ViT's GELU
+and residual adds), and the plain layers (``qcnn.lrn:<layer>``,
+``qcnn.pool:<layer>``, ``qcnn.relu:<layer>``, ``qcnn.softmax:<layer>``).
+The ViT forward adds its input cast and embeddings (``qcnn.embed``), its
+LayerNorms (``qcnn.layernorm:blk<i>.ln1``, ``.ln2``,
+``qcnn.layernorm:final``) and each block's attention from the logits
+through the second product and its casts (``qcnn.attention:blk<i>``); its
+projections are ``qcnn.fc:blk<i>.qkv``, ``.out``, ``.mlp1``, ``.mlp2`` and
 ``qcnn.fc:head``. A profiler that is running records each as a range of
 the host's timeline; a kernel belongs to the innermost range around its
 launch.

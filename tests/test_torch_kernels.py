@@ -24,6 +24,7 @@ from qcnn_tpu_torch.ops import lut as tlut
 from qcnn_tpu_torch.ops.cuda import (
     KERNELS,
     attention_fused,
+    epilogue_fused,
     launches,
     lrn_fused,
     pq_conv_fused,
@@ -232,10 +233,12 @@ def test_plain_versions_do_not_count_launches(rng):
     attention_fused.attention_fused(*(t.reshape(2, 5, 1, 64)
                                       for t in qkv.chunk(3, dim=-1)),
                                     scale=0.125)
+    epilogue_fused.epilogue(T(x).to(torch.bfloat16), torch.bfloat16,
+                            bias=torch.zeros(32), act="gelu")
     assert launches() == before
     assert set(KERNELS) == {"pq_decode", "pq_lut_gather", "pq_fc_fused",
                             "lrn_fused", "pq_conv_fused", "pq_fc",
-                            "attention_fused",
+                            "attention_fused", "epilogue_fused",
                             "pq_fc_fused_general", "pq_conv_fused_general",
                             "pq_lut_gather_general", "lrn_fused_general"}
 

@@ -5,7 +5,8 @@ CPU at small sizes.
 The seam is the only forward-time reader of a conv's or FC's param format,
 and it emits the activation dtype on every route: the float32 that the
 fused kernels' and the gather routes' plain versions return is cast there,
-once; int8 codes (an ``out_scale``) stay codes. The walk is the one that
+once; int8 codes (an ``out_scale``) stay codes. A residual and an
+activation join the product's epilogue there. The walk is the one that
 ``network.forward``, ``make_sharded_forward`` and ``profile_layers`` run:
 each executes, layer by layer, the strategies ``resolve_strategy`` gives
 for the global batch and the activation dtype."""
@@ -127,20 +128,55 @@ def test_seam_emits_the_activation_dtype_on_every_route(layer, route,
         assert kept.dtype == (torch.int8 if codes else torch.float32)
 
 
-def test_conv_product_leaves_int8_values_in_float32():
-    """ResNet's convs before a ReLU take the product uncast: an int8 conv's
-    float32 values, which the ReLU casts after it; every other format
-    emits ``out_dtype`` already, as conv_layer does."""
-    x, p, impl, want = _conv_case("int8", 3, torch.bfloat16)
-    got = conv_ops.conv_product(x, p, impl=impl, stride=1, pad=1,
-                                out_dtype=torch.bfloat16)
-    assert got.dtype == torch.float32 and torch.equal(got, want)
-    x, p, impl, _ = _conv_case("indecode_ohwi", 3, torch.bfloat16)
-    assert torch.equal(
-        conv_ops.conv_product(x, p, impl=impl, stride=1, pad=1,
-                              out_dtype=torch.bfloat16),
-        conv_ops.conv_layer(x, p, impl=impl, stride=1, pad=1,
-                            out_dtype=torch.bfloat16))
+TAILS = {"relu": dict(act="relu"), "gelu": dict(act="gelu"),
+         "residual": dict(residual=True),
+         "residual-relu": dict(act="relu", residual=True)}
+ACTS = {None: lambda v: v, "relu": torch.relu,
+        "gelu": torch.nn.functional.gelu}
+
+
+@pytest.mark.parametrize("tail", sorted(TAILS))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("layer,route",
+                         [("conv", r) for r in CONV_ROUTES
+                          if r[0] != "int8-codes"]
+                         + [("fc", r) for r in FC_ROUTES
+                            if r != "int8-codes"],
+                         ids=lambda v: v if isinstance(v, str) else
+                         f"{v[0]}-{v[1]}x{v[1]}")
+def test_seam_adds_the_residual_then_the_activation_on_every_route(
+        layer, route, dtype, tail):
+    """With ``residual`` and ``act`` the seam's output is its emitted
+    product, then the residual added in the activation dtype, then the
+    activation, as the forwards ran them after the seam; an int8 conv's
+    float32 values take the activation before their cast where no residual
+    joins, as ResNet's int8 convs always did."""
+    dt = DTYPES[dtype]
+    kw = TAILS[tail]
+    if layer == "conv":
+        (route, taps) = route
+        x, p, impl, want = _conv_case(route, taps, dt)
+    else:
+        x, p, impl, want = _fc_case(route, dt)
+    gen = torch.Generator().manual_seed(len(tail))
+    res = torch.randn(want.shape, generator=gen).to(dt)
+    act = ACTS[kw.get("act")]
+    if route == "int8" and layer == "conv" and "residual" not in kw:
+        expected = act(want).to(dt)
+    else:
+        expected = want.to(dt)
+        if "residual" in kw:
+            expected = expected + res
+        expected = act(expected)
+    tail_kw = dict(act=kw.get("act"),
+                   residual=res if "residual" in kw else None)
+    if layer == "conv":
+        got = conv_ops.conv_layer(x, p, impl=impl, stride=1, pad=taps // 2,
+                                  out_dtype=dt, **tail_kw)
+    else:
+        got = fc_ops.fc_layer(x, p, impl=impl, out_dtype=dt, **tail_kw)
+    assert got.dtype == dt
+    assert torch.equal(got, expected)
 
 
 # --- the one walk --------------------------------------------------------

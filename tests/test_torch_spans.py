@@ -39,14 +39,14 @@ RESNET = resnet.ResNetSpec("tiny", (1, 1), (64, 256), num_classes=10,
 
 
 def _resnet_spans():
+    """The ReLUs and the shortcut adds run in the convs' epilogues, so the
+    ResNet forward opens no ``relu`` or ``residual`` span."""
     names = {"qcnn.forward", "qcnn.decode", "qcnn.conv:stem",
-             "qcnn.relu:stem", "qcnn.pool:stem", "qcnn.pool:head",
-             "qcnn.fc:head", "qcnn.softmax:head"}
+             "qcnn.pool:stem", "qcnn.pool:head", "qcnn.fc:head",
+             "qcnn.softmax:head"}
     for key, _, convs in resnet.block_layout(RESNET):
-        names.add(f"qcnn.residual:{key}")
         for conv, *_ in convs:
             names.add(f"qcnn.conv:{key}.{conv}")
-        names |= {f"qcnn.relu:{key}.conv1", f"qcnn.relu:{key}.conv2"}
     return names
 
 
@@ -188,6 +188,29 @@ def test_bias_adds_after_a_conv_lie_in_epilogue_spans(name):
             and any(c0 <= s < c1 for c0, c1, _ in convs)]
     assert adds
     for s in adds:
+        assert any(e0 <= s < e1 for e0, e1, _ in epilogues)
+
+
+@pytest.mark.parametrize("name", ["resnet-bf16", "resnet-f32",
+                                  "resnet-int8"])
+def test_relus_and_shortcuts_of_a_resnet_lie_in_epilogue_spans(name):
+    """Each ReLU (``clamp_min`` on the CPU) and each bias or shortcut add
+    under a ResNet conv span is a pass of the product's epilogue."""
+    fn, _ = _case(name)
+    _, events = _traced(fn)
+    convs = [e for e in events if e[2].startswith("qcnn.conv:")]
+    epilogues = [e for e in events if e[2] == "qcnn.epilogue"]
+    ops = {}
+    for s, _, n in events:
+        if n in ("aten::add", "aten::clamp_min") and any(
+                c0 <= s < c1 for c0, c1, _ in convs):
+            ops.setdefault(n, []).append(s)
+    # the stem, every conv1 and conv2 and each block's last conv
+    n_blocks = len(resnet.block_layout(RESNET))
+    relus = [s for s in ops["aten::clamp_min"]
+             if any(e0 <= s < e1 for e0, e1, _ in epilogues)]
+    assert len(relus) == 1 + 3 * n_blocks
+    for s in ops["aten::add"]:
         assert any(e0 <= s < e1 for e0, e1, _ in epilogues)
 
 

@@ -190,11 +190,12 @@ def test_every_projection_decodes_in_the_step_at_the_cell_rows():
 # --- spans -------------------------------------------------------------------
 
 def _block_spans(i):
+    """The GELU and the two residual adds run in the epilogues of mlp1,
+    out and mlp2, under their ``fc`` spans."""
     k = f"blk{i}"
     return {f"qcnn.layernorm:{k}.ln1", f"qcnn.layernorm:{k}.ln2",
             f"qcnn.fc:{k}.qkv", f"qcnn.fc:{k}.out", f"qcnn.fc:{k}.mlp1",
-            f"qcnn.fc:{k}.mlp2", f"qcnn.attention:{k}", f"qcnn.gelu:{k}",
-            f"qcnn.residual:{k}.attn", f"qcnn.residual:{k}.mlp"}
+            f"qcnn.fc:{k}.mlp2", f"qcnn.attention:{k}"}
 
 
 def _span_events(fn):
@@ -281,8 +282,9 @@ def _cell_forward(card):
 @pytest.mark.card
 def test_cell_forward_launches_on_the_card(card):
     """26 ``pq_decode`` launches a forward (one grouped decode a block, the
-    patch embedding's, the head's), one ``attention_fused`` a block and no
-    fused decode-GEMM."""
+    patch embedding's, the head's), one ``attention_fused`` a block, one
+    ``epilogue_fused`` for each of the 96 projections of the blocks and for
+    the patch embedding, and no fused decode-GEMM."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     fwd, x = _cell_forward(card)
@@ -294,7 +296,8 @@ def test_cell_forward_launches_on_the_card(card):
     after = cuda_ops.launches()
     got = {k: after[k] - before.get(k, 0) for k in after
            if after[k] != before.get(k, 0)}
-    assert got == {"pq_decode": 26, "attention_fused": 24}, got
+    assert got == {"pq_decode": 26, "attention_fused": 24,
+                   "epilogue_fused": 97}, got
     assert probs.shape == (128, 1000) and torch.isfinite(probs).all()
 
 
@@ -320,8 +323,9 @@ def test_every_kernel_of_a_traced_step_lies_in_a_span(card):
     assert got["unlinked"]["kernels"] == 0
     assert got["outside"]["kernels"] == 1  # the copy to the host
     assert "forward" not in got["kinds"]
-    assert {"attention", "layernorm", "fc", "epilogue", "gelu", "residual",
-            "decode", "embed", "softmax"} <= set(got["kinds"])
+    assert {"attention", "layernorm", "fc", "epilogue", "decode", "embed",
+            "softmax"} <= set(got["kinds"])
+    assert not {"gelu", "residual"} & set(got["kinds"])
     assert got["kinds"]["decode"]["kernels"] == 24
     # one attention_fused launch a block, and no other kernel there
     assert got["kinds"]["attention"]["kernels"] == 24
