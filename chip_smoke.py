@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only-int8    # phases 1-2, the f32 conv check, 8
     python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
     python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
+    python3 chip_smoke.py --only-swin    # phases 1-2 and 10b (Swin-L)
     python3 chip_smoke.py --only-serve   # phases 1-2 and 11 (serving)
     python3 chip_smoke.py --only-quantize  # phases 1-2 and 12 (quantizer)
     python3 chip_smoke.py --only-profile   # phases 1-2 and 13 (profile)
@@ -51,7 +52,9 @@ Phases, each fatal on failure (any exception exits non-zero):
    under the general plan (AlexNet conv1-5 and fc6-8, every PQ weight of
    ResNet-50, fc6's geometry at K = 256), and the grouped launch
    bit-equal to per-item launches (AlexNet's five convs, block 0 of each
-   ResNet-50 stage, the four projections of a ViT-B/16 block, 20 items).
+   ResNet-50 stage, the four projections of a ViT-B/16 block and of block
+   0 of each Swin-L stage, each Swin-L patch merging's reduction, 20
+   items).
    pq_lut_gather at fc6-8 for B = 1, 2 (the route's), 3 and 17 (batch
    tiles of 4 and 8 rows), all of which must plan the staged kernel, each
    launched twice with equal bits and held bit for bit to split_sum_plain
@@ -80,7 +83,7 @@ Phases, each fatal on failure (any exception exits non-zero):
    ops.misc.lrn_route), and the four
    general kernels through the public entry points on ragged shapes, each
    counted under its own name. epilogue_fused at every epilogue shape of the
-   three benchmark cells against torch's chain, bit for bit (the GELU: one
+   four benchmark cells against torch's chain, bit for bit (the GELU: one
    bf16 step at most, where erff differs, counted), the first shapes
    timed. Every bf16 path below launches it once an epilogue that fuses a
    bias, an activation or a residual (EPILOGUES_*), and no int8 path does.
@@ -161,6 +164,14 @@ Phases, each fatal on failure (any exception exits non-zero):
    F: save_family_checkpoint of ViT-B/16 + TorchPreprocessor.imagenet(),
       FamilyClassifier.from_checkpoint(memory=True) on 16 BMPs: pq_decode
       14 and attention_fused 12 a call, held to memory=False.
+10b. Swin-L/4-w12 at 384x384 (1000 classes), synthetic PQ params (seed
+   0), through build_family_forward at the benchmark cell's batch (B=128),
+   each run through phase 5's loops, profile and launch checks:
+   G: memory mode: pq_decode 29 a forward (the patch embedding, one
+      grouped launch a block for its four projections, each reduction,
+      the head) and epilogue_fused 100 (the patch embedding, the four
+      projections of each of the 24 blocks, the three reductions);
+   H: decode at load: epilogue_fused 100; G agrees with H.
 
 11. serving (serve/, cli.py), at full width from synthetic params (seed 0)
    and files the port's own writers put in a temporary directory (phase
@@ -368,9 +379,9 @@ Limits (the script fails past them):
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
---only-io, --only-vit, --only-serve, --only-quantize, --only-profile,
---only-parallel, --only-a13, --gather-times or --quantize-repro it stops
-early and prints neither.
+--only-io, --only-vit, --only-swin, --only-serve, --only-quantize,
+--only-profile, --only-parallel, --only-a13, --gather-times or
+--quantize-repro it stops early and prints neither.
 """
 
 from __future__ import annotations
@@ -408,7 +419,9 @@ LRNS = {"lrn_fused": 2}
 # bias adds (its FCs' float32 sums are cast alone, by torch), and the 3
 # FCs' where they are dense; ResNet-50's 33 ReLUs, 16 shortcuts and 4
 # projections; ViT-B/16's and ViT-L/16's 4 projections a block and the
-# patch embedding; none on the int8 paths
+# patch embedding; Swin-L's 4 projections of each of its 24 blocks, the
+# patch embedding and the 3 patch mergings' reductions (a zero bias); none
+# on the int8 paths
 EPILOGUES_ALEXNET = {"epilogue_fused": 5}
 EPILOGUES_ALEXNET_DENSE = {"epilogue_fused": 8}
 EPILOGUES_RESNET50 = {"epilogue_fused": 53}
@@ -418,6 +431,8 @@ ALEXNET_MEMORY_B256 = {**LRNS, "pq_decode": 1, "pq_fc_fused": 3,
 ALEXNET_MEMORY_B1 = {**LRNS, "pq_decode": 1, "pq_lut_gather": 3,
                      **EPILOGUES_ALEXNET}
 RESNET50_MEMORY = {"pq_conv_fused": 7, "pq_decode": 17, **EPILOGUES_RESNET50}
+EPILOGUES_SWIN_L = {"epilogue_fused": 100}
+SWIN_L_MEMORY = {"pq_decode": 29, **EPILOGUES_SWIN_L}
 # peak_alloc_bytes of the memory-mode runs when every conv decoded for
 # itself (this script's run of the version before the grouped decode, on an
 # H100 80GB HBM3): a group's weights now live until its block or step ends
@@ -821,7 +836,8 @@ def phase_gather_times(geo, spec, dev, flush):
     log(f"gather-times lrn_fused both kernel_ms={total:.5f}")
 
 
-def phase_gather_kernels(spec, geo, rparams, vparams, dev, flush, peaks):
+def phase_gather_kernels(spec, geo, rparams, vparams, sparams, dev, flush,
+                         peaks):
     """Phases 3 and 4 for the two gathers.
 
     pq_fc at AlexNet fc6-8, B = 256 (summed into the kernel's row), 64, 3
@@ -833,9 +849,10 @@ def phase_gather_kernels(spec, geo, rparams, vparams, dev, flush, peaks):
     pq_decode bit-exact in bf16 and f32, under its plan and under the
     general plan, at AlexNet's conv1-5 and fc6-8 and every PQ weight of
     ResNet-50; the grouped launch on AlexNet's five convs (the kernel's
-    row: one launch a forward) and on block 0 of each ResNet-50 stage,
-    bit-equal to per-item `decode_rows` and timed against those launches
-    and against `C[arange(S), A]`."""
+    row: one launch a forward), on block 0 of each ResNet-50 stage, on a
+    ViT-B/16 block, on block 0 of each Swin-L stage and on each Swin-L
+    reduction, bit-equal to per-item `decode_rows` and timed against those
+    launches and against `C[arange(S), A]`."""
     from qcnn_tpu_torch.ops import lut as lut_ops
     from qcnn_tpu_torch.ops.cuda import pq_decode, pq_fc
 
@@ -1011,6 +1028,20 @@ def phase_gather_kernels(spec, geo, rparams, vparams, dev, flush, peaks):
                  blk[name]["codebooks"].shape[0]
                  * blk[name]["codebooks"].shape[2])
                 for name in VIT_BLOCK_GEMMS])
+
+    def gemm_item(p):
+        cb = p["codebooks"]
+        return t(cb, torch.bfloat16), t(p["assignments"]), \
+            cb.shape[0] * cb.shape[2]
+    # Swin-L as memory mode decodes it: a block's four projections in one
+    # launch (block 0 of each stage), each reduction alone
+    for stage in range(4):
+        blk = sparams[f"s{stage}b0"]
+        group_case(f"swin_l384 s{stage}b0 bf16 (qkv, out, mlp1, mlp2)",
+                   [gemm_item(blk[name]) for name in VIT_BLOCK_GEMMS])
+    for stage in range(3):
+        group_case(f"swin_l384 s{stage}merge.reduction bf16",
+                   [gemm_item(sparams[f"s{stage}merge"]["reduction"])])
     # one call each, flushed: what a launch costs whatever its size
     for name, (cb, ids, row_len) in zip(
             ALEXNET_CONVS, alexnet_decode_items(geo, spec, dev,
@@ -2397,7 +2428,7 @@ def phase_attention(dev, flush, peaks) -> dict:
 
 
 # epilogue_fused's shapes and forms, (rows, C, product dtype, bias,
-# activation, residual): every one the three benchmark cells run; the first
+# activation, residual): every one the four benchmark cells run; the first
 # two are the kernel table's row (ResNet-50's stage-1 conv3 and ViT-L/16's
 # mlp1), and the first EPILOGUE_TIMED are also timed
 EPILOGUE_SHAPES = (
@@ -2427,6 +2458,17 @@ EPILOGUE_SHAPES = (
     ((256, 27, 27), 256, "bf16", True, None, False),
     ((256, 13, 13), 384, "bf16", True, None, False),
     ((256, 13, 13), 256, "bf16", True, None, False),
+    # Swin-L/4-w12@384, B=128: the patch embedding, then each stage's qkv,
+    # out and mlp2 (bias + residual), mlp1 (bias + GELU) on B x grid^2
+    # rows (grids 96, 48, 24, 12), then the reductions (a zero bias)
+    ((128 * 96 * 96,), 192, "bf16", True, None, False),
+    *(((128 * g * g,), c, "bf16", True, act, res)
+      for g, d in ((96, 192), (48, 384), (24, 768), (12, 1536))
+      for c, act, res in ((3 * d, None, False), (d, None, True),
+                          (4 * d, "gelu", False))),
+    ((128 * 48 * 48,), 384, "bf16", True, None, False),
+    ((128 * 24 * 24,), 768, "bf16", True, None, False),
+    ((128 * 12 * 12,), 1536, "bf16", True, None, False),
 )
 EPILOGUE_TIMED = 3  # the first shapes, timed; the others checked only
 
@@ -2605,6 +2647,43 @@ def phase_vit(dev, gpu_name, vparams) -> dict:
         del dec
     if failed:
         raise AssertionError("phase 10: " + "; ".join(failed))
+    return counts
+
+
+# phase 10b: Swin-L at the benchmark cell's batch, (run, mode, launches a
+# forward)
+SWIN_BATCH = 128
+SWIN_RUNS = (("G", "memory", SWIN_L_MEMORY), ("H", "decode", EPILOGUES_SWIN_L))
+
+
+def phase_swin(dev, gpu_name, sparams) -> dict:
+    """Phase 10b: Swin-L/4-w12 at 384x384, synthetic PQ params (seed 0),
+    through build_family_forward at B=128: runs G (memory mode) and H
+    (decode at load) of SWIN_RUNS, each counted from 0 just before it and
+    profiled; G agrees with H. Returns the launch counts of each run."""
+    from qcnn_tpu_torch.models import common, swin
+
+    spec = swin.swin_l384()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((SWIN_BATCH, spec.image_size, spec.image_size, 3),
+                    generator=gen, device=dev)
+    probs, counts = {}, {}
+    for run, mode, per_fwd in SWIN_RUNS:
+        t0 = time.perf_counter()
+        prepared, fwd_fn, _ = common.build_family_forward(
+            "swin", spec, sparams, memory=mode == "memory",
+            compute_dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        probs[run], counts[f"swin_l384 {mode}"] = drive(
+            f"swin_l384 {mode} B={SWIN_BATCH} (run {run})",
+            lambda: fwd_fn(prepared, x), SWIN_BATCH, spec.num_classes,
+            steps=3, per_fwd=per_fwd, gpu_name=gpu_name,
+            resident=tensor_bytes(prepared), prep_s=prep_s)
+        del prepared, fwd_fn
+        torch.cuda.empty_cache()
+    agree(f"swin_l384 memory vs decode at load B={SWIN_BATCH} (runs G vs "
+          f"H)", probs["H"], probs["G"], 5e-3, 0.99)
     return counts
 
 
@@ -4651,6 +4730,8 @@ def main() -> int:
     only.add_argument("--only-vit", action="store_true",
                       help="stop after the build, the f32 checks and "
                            "phase 10 (ViT)")
+    only.add_argument("--only-swin", action="store_true",
+                      help="stop after the build and phase 10b (Swin-L)")
     only.add_argument("--only-serve", action="store_true",
                       help="stop after the build and phase 11 (serving)")
     only.add_argument("--only-quantize", action="store_true",
@@ -4697,7 +4778,7 @@ def main() -> int:
         quantize_repro(torch.device("cuda", 0), smi)
         return 0
     global time_ms, flush_buffer
-    from qcnn_tpu_torch.models import resnet, synth, vit, zoo
+    from qcnn_tpu_torch.models import resnet, swin, synth, vit, zoo
     from qcnn_tpu_torch.ops import cuda as cuda_ops
     from qcnn_tpu_torch.ops.cuda import _build
     from qcnn_tpu_torch.utils.timing import flush_buffer, time_ms
@@ -4758,6 +4839,14 @@ def main() -> int:
         log(f"script seconds={time.perf_counter() - t_script:.2f}")
         log(json.dumps({"partial": "a13 only", "launches": counts}))
         return 0
+    t0 = time.perf_counter()
+    sparams = synth.random_swin_pq_params(swin.swin_l384(), seed=0)
+    log(f"swin synthetic params seconds={time.perf_counter() - t0:.2f}")
+    if args.only_swin:
+        del flush
+        counts = phase_swin(dev, gpu_name, sparams)
+        log(json.dumps({"partial": "swin only", "launches": counts}))
+        return 0
     check_f32_conv(dev)
     t0 = time.perf_counter()
     vparams = {model: synth.random_vit_pq_params(vit.VITS[model](), seed=0)
@@ -4787,8 +4876,8 @@ def main() -> int:
         log(json.dumps({"partial": "int8 only", "launches": counts}))
         return 0
     if args.only_gather:
-        rows = phase_gather_kernels(spec, geo, rparams, vparams, dev, flush,
-                                    peaks)
+        rows = phase_gather_kernels(spec, geo, rparams, vparams, sparams,
+                                    dev, flush, peaks)
         log(json.dumps({"partial": "gather kernels only", "rows": rows}))
         return 0
 
@@ -4799,8 +4888,8 @@ def main() -> int:
     if args.only_fused:
         log(json.dumps({"partial": "fused kernels only", "rows": rows}))
         return 0
-    rows |= phase_gather_kernels(spec, geo, rparams, vparams, dev, flush,
-                                 peaks)
+    rows |= phase_gather_kernels(spec, geo, rparams, vparams, sparams, dev,
+                                 flush, peaks)
     rows |= phase_kernels(geo, spec, dev, flush, peaks)
     new_rows, lrn_counts, more_general = phase_other_kernels(
         spec, geo, dev, flush, peaks)
@@ -4821,6 +4910,8 @@ def main() -> int:
     counts |= phase_io(spec, params, rparams, dev, smi)
     # phase 10: the ViT family
     counts |= phase_vit(dev, gpu_name, vparams)
+    # phase 10b: Swin-L
+    counts |= phase_swin(dev, gpu_name, sparams)
     # phase 11: serving
     serve_counts, fc_err = phase_serve(spec, params, rparams, geo, dev,
                                        peaks, smi)
@@ -4855,8 +4946,8 @@ def main() -> int:
         "pq_decode": ("alexnet memory", "resnet50 memory",
                       "io alexnet classify", "io resnet50 family",
                       "vit_b16 memory", "vit_l16 memory",
-                      "io vit_b16 family", "serve alexnet memory",
-                      "serve resnet50 memory",
+                      "io vit_b16 family", "swin_l384 memory",
+                      "serve alexnet memory", "serve resnet50 memory",
                       f"quantize alexnet memory B={QUANT_BATCH}",
                       "quantize alexnet memory B=1",
                       f"quantize {QUANT_FAMILY} memory", "a4 gemm",
@@ -4890,7 +4981,8 @@ def main() -> int:
                            "alexnet memory", "alexnet pallas",
                            "resnet50 memory", "vit_b16 decode",
                            "vit_b16 memory", "vit_l16 memory",
-                           "vit_l16 decode", "io alexnet classify",
+                           "vit_l16 decode", "swin_l384 memory",
+                           "swin_l384 decode", "io alexnet classify",
                            "io resnet50 family", "io vit_b16 family",
                            "serve alexnet memory", "serve resnet50 memory",
                            "a13 reference layout"),

@@ -256,7 +256,7 @@ def _read_arrays(path: str):
 
 
 # ---------------------------------------------------------------------------
-# Family checkpoints (ResNet, ViT): nested-dict params + dataclass spec
+# Family checkpoints (ResNet, ViT, Swin): nested-dict params + dataclass spec
 # ---------------------------------------------------------------------------
 
 # module:class of each family's spec, imported by name on load; the port's
@@ -264,6 +264,7 @@ def _read_arrays(path: str):
 _FAMILY_SPECS = {
     "resnet": "qcnn_tpu_torch.models.resnet:ResNetSpec",
     "vit": "qcnn_tpu_torch.models.vit:ViTSpec",
+    "swin": "qcnn_tpu_torch.models.swin:SwinSpec",
 }
 
 

@@ -10,9 +10,10 @@ use 8-wide sub-spaces with 128 codewords; FC layers 4-wide with 32 codewords;
 a final classifier FC gets scalar sub-spaces with 16 codewords, matching
 fc8's (4096, 16, 1) codebook.
 
-``random_resnet_pq_params`` and ``random_vit_pq_params`` are the port's
-own: random codebooks and ids at the families' geometry, without the
-k-means of ``resnet.quantize_params`` / ``vit.quantize_params``.
+``random_resnet_pq_params``, ``random_vit_pq_params`` and
+``random_swin_pq_params`` are the port's own: random codebooks and ids at
+the families' geometry, without the k-means of the families'
+``quantize_params``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from qcnn_tpu_torch.core import (
     pq_conv_params,
     pq_fc_params,
 )
-from qcnn_tpu_torch.models import resnet
+from qcnn_tpu_torch.models import resnet, swin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +213,57 @@ def random_vit_pq_params(spec, seed: int = 0) -> dict:
             "mlp1": gemm(dim, spec.mlp_ratio * dim),
             "mlp2": gemm(spec.mlp_ratio * dim, dim),
         }
+    return params
+
+
+def random_swin_pq_params(spec, seed: int = 0) -> dict:
+    """Synthetic PQ params for a ``models.swin.SwinSpec`` (NumPy), in the
+    layout of ``swin.init_dense_params`` and the geometry of
+    ``swin.quantize_params`` at its defaults: every GEMM D=4, K=32, S =
+    ceil(Cin / 4), codewords N(0, 1/Cin), biases N(0, 0.01^2) but the
+    merges' reductions, whose bias is zero (the published layer has none);
+    LayerNorm scales 1 + 0.05 N(0, 1) and shifts 0.02 N(0, 1), as
+    :func:`random_vit_pq_params` draws them. The relative-position tables
+    are N(0, 1): at Swin's init of 0.02 the bias would be a negligible part
+    of logits of about unit spread."""
+    rng = np.random.default_rng(seed)
+    d, k = 4, 32
+
+    def gemm(cin, cout, bias=True):
+        s = -(-cin // d)
+        return pq_fc_params(
+            (rng.standard_normal((s, k, d)) / np.sqrt(cin)).astype(np.float32),
+            rng.integers(0, k, size=(cout, s), dtype=np.uint8),
+            (rng.standard_normal(cout) * 0.01).astype(np.float32) if bias
+            else np.zeros(cout, np.float32))
+
+    def ln(dim):
+        return {"scale": (1 + 0.05 * rng.standard_normal(dim)).astype(
+                    np.float32),
+                "shift": (0.02 * rng.standard_normal(dim)).astype(np.float32)}
+
+    c = spec.embed_dim
+    params: dict = {"patch_embed": gemm(spec.patch ** 2 * 3, c),
+                    "patch_norm": ln(c)}
+    for blk in swin.block_layout(spec):
+        dim = blk.dim
+        params[blk.key] = {
+            "ln1": ln(dim),
+            "qkv": gemm(dim, 3 * dim),
+            "rel_table": rng.standard_normal(
+                ((2 * blk.window - 1) ** 2, blk.heads)).astype(np.float32),
+            "out": gemm(dim, dim),
+            "ln2": ln(dim),
+            "mlp1": gemm(dim, spec.mlp_ratio * dim),
+            "mlp2": gemm(spec.mlp_ratio * dim, dim),
+        }
+    for i in range(len(spec.depths) - 1):
+        dim = c * 2 ** i
+        params[f"s{i}merge"] = {"norm": ln(4 * dim),
+                                "reduction": gemm(4 * dim, 2 * dim,
+                                                  bias=False)}
+    params["ln_final"] = ln(spec.final_dim)
+    params["head"] = gemm(spec.final_dim, spec.num_classes)
     return params
 
 

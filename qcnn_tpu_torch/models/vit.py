@@ -39,24 +39,24 @@ import torch
 import torch.nn.functional as F
 
 from qcnn_tpu_torch._device import resolve_device
-from qcnn_tpu_torch.core import is_pq
-from qcnn_tpu_torch.models import common
 from qcnn_tpu_torch.models.common import make_cast as _make_cast
-from qcnn_tpu_torch.models.prepare import (
-    _cast_pq,
-    _decode_rows_np,
-    _is_int8,
-    _np,
-    _tensor,
-    dense_layer,
+from qcnn_tpu_torch.models.transformer import (
+    block_projections,
+    gemm_params,
+    layernorm,
+    ln_params,
+    prepare_tree,
 )
+# the forward looks these two up at each call, so they can be swapped
+from qcnn_tpu_torch.models.transformer import logits as _logits
+from qcnn_tpu_torch.models.transformer import proj as _proj
 from qcnn_tpu_torch.ops import fc as fc_ops
-from qcnn_tpu_torch.ops.conv import instep_decodes
 from qcnn_tpu_torch.ops.cuda import attention_fused as attn_kernel
 from qcnn_tpu_torch.quantizer.kmeans import split
-from qcnn_tpu_torch.quantizer.opq import inverse_permutation
 from qcnn_tpu_torch.quantizer.pq import quantize_fc_layer
 from qcnn_tpu_torch.utils.spans import span
+
+LN_EPS = 1e-6  # every LayerNorm's, as the JAX package's
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,38 +104,25 @@ VITS = {"vit_b16": vit_b16, "vit_s16": vit_s16, "vit_l16": vit_l16}
 # Parameters (NumPy: the same seed gives the JAX package's bits)
 # ---------------------------------------------------------------------------
 
-def _gemm(rng, cin, cout):
-    return {
-        "weight": (rng.standard_normal((cin, cout)) /
-                   np.sqrt(cin)).astype(np.float32),
-        "bias": np.zeros(cout, np.float32),
-    }
-
-
-def _ln(dim):
-    return {"scale": np.ones(dim, np.float32),
-            "shift": np.zeros(dim, np.float32)}
-
-
 def init_dense_params(spec: ViTSpec, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     d = spec.dim
     params: dict = {
-        "patch_embed": _gemm(rng, spec.patch * spec.patch * 3, d),
+        "patch_embed": gemm_params(rng, spec.patch * spec.patch * 3, d),
         "cls_token": np.zeros((1, 1, d), np.float32),
         "pos_embed": (rng.standard_normal((1, spec.seq_len, d)) *
                       0.02).astype(np.float32),
-        "head": _gemm(rng, d, spec.num_classes),
-        "ln_final": _ln(d),
+        "head": gemm_params(rng, d, spec.num_classes),
+        "ln_final": ln_params(d),
     }
     for i in range(spec.depth):
         params[f"blk{i}"] = {
-            "ln1": _ln(d),
-            "qkv": _gemm(rng, d, 3 * d),
-            "out": _gemm(rng, d, d),
-            "ln2": _ln(d),
-            "mlp1": _gemm(rng, d, spec.mlp_ratio * d),
-            "mlp2": _gemm(rng, spec.mlp_ratio * d, d),
+            "ln1": ln_params(d),
+            "qkv": gemm_params(rng, d, 3 * d),
+            "out": gemm_params(rng, d, d),
+            "ln2": ln_params(d),
+            "mlp1": gemm_params(rng, d, spec.mlp_ratio * d),
+            "mlp2": gemm_params(rng, spec.mlp_ratio * d, d),
         }
     return params
 
@@ -143,27 +130,6 @@ def init_dense_params(spec: ViTSpec, seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-
-def _layernorm(x, p, eps=1e-6):
-    """(x - mean) / sqrt(var + eps) * scale + shift over the last axis, in
-    float32 (one ``F.layer_norm`` pass), cast back to x's dtype."""
-    return F.layer_norm(x.float(), (x.shape[-1],), p["scale"], p["shift"],
-                        eps).to(x.dtype)
-
-
-def _logits(q, k_t, hd: int, logits_dtype):
-    """q @ kᵀ / sqrt(hd) in ``logits_dtype``, as the JAX package: float32
-    sums divided by sqrt(hd) in float32, rounded once. Where 1/sqrt(hd) is
-    a power of two (hd = 16, 64, 256, ...) the division commutes with the
-    rounding, so one matmul emits ``logits_dtype`` and the scale follows
-    exactly; any other hd takes the float32 matmul."""
-    root = math.isqrt(hd)
-    power_of_two = root * root == hd and root & (root - 1) == 0
-    if power_of_two and q.dtype == logits_dtype:
-        return fc_ops.matmul(q, k_t, logits_dtype) * (1.0 / root)
-    return (fc_ops.matmul(q, k_t, torch.float32)
-            / math.sqrt(hd)).to(logits_dtype)
-
 
 def attention_route(device: torch.device, dtype: torch.dtype,
                     logits_dtype: torch.dtype, hd: int) -> str:
@@ -205,24 +171,6 @@ def _masked_attention(q, k, v, n_pad: int = 0, logits_dtype=torch.float32,
         att = att + mask
     att = torch.softmax(att, dim=-1, dtype=torch.float32).to(v.dtype)
     return fc_ops.matmul(att, v, out_dtype).transpose(1, 2)
-
-
-def _proj(x, p, out_dtype=None, impl=None, decoded=None, act=None,
-          residual=None):
-    """(…, Cin) @ gemm -> (…, Cout) in ``out_dtype`` through
-    ``ops.fc.fc_layer``, with ``residual`` (…, Cout) and ``act`` after the
-    bias in its epilogue.
-
-    impl: the strategy :func:`_block_routes` resolved (None resolves
-    ``common.fc_memory_impl`` on the rows here: projections see B x tokens
-    rows); decoded: the weight from the block's grouped decode."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if residual is not None:
-        residual = residual.reshape(x2.shape[0], -1)
-    y = fc_ops.fc_layer(
-        x2, p, impl=impl or common.fc_memory_impl(x2.shape[0], p, x2.dtype),
-        out_dtype=out_dtype, decoded=decoded, act=act, residual=residual)
-    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def forward(params: dict, x, *, spec: ViTSpec, compute_dtype=None,
@@ -268,28 +216,6 @@ def _run_embed(x, params, spec, cast):
         return x + params["pos_embed"].to(x.dtype)
 
 
-def _block_inputs(x, blk, od) -> dict:
-    """{projection: (input rows, Cin, input dtype)} of one block, which
-    follow from the block's input x (B, N, D): qkv and mlp1 take the
-    LayerNorm of x (x's dtype), out takes the attention output and mlp2
-    the GELU of mlp1's output, both ``od`` (float32 when None)."""
-    rows, d = x.shape[0] * x.shape[1], x.shape[2]
-    inner = od if od is not None else torch.float32
-    return {"qkv": (rows, d, x.dtype), "out": (rows, d, inner),
-            "mlp1": (rows, d, x.dtype),
-            "mlp2": (rows, blk["mlp1"]["bias"].shape[0], inner)}
-
-
-def _block_routes(inputs: dict, blk) -> dict:
-    """{projection: (params, impl, Cin)} for the block's PQ projections:
-    the strategy ``common.fc_memory_impl`` resolves for its rows and dtype,
-    decided once per projection from its input (:func:`_block_inputs`)."""
-    return {name: (blk[name], common.fc_memory_impl(rows, blk[name], dtype),
-                   cin)
-            for name, (rows, cin, dtype) in inputs.items()
-            if is_pq(blk[name])}
-
-
 def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
     """One transformer block (shared by forward and forward_segments). The
     projections that decode their weight in the step do so in one
@@ -300,23 +226,10 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
     nh = spec.heads
     hd = spec.dim // nh
     od = cast.dtype
-    inputs = _block_inputs(x, blk, od)
-    routes = _block_routes(inputs, blk)
-    decoded = instep_decodes(routes)
-
-    def proj(v, name, act=None, residual=None):
-        if (v.shape[0] * v.shape[1], v.shape[2], v.dtype) != inputs[name]:
-            raise RuntimeError(
-                f"{name}: input {tuple(v.shape)} {v.dtype}, but its route "
-                f"was decided for (rows, Cin, dtype) {inputs[name]}")
-        impl = routes[name][1] if name in routes else None
-        with span("fc", key, name):
-            return _proj(v, blk[name], out_dtype=od, impl=impl,
-                         decoded=decoded.get(name), act=act,
-                         residual=residual)
+    proj = block_projections(x, blk, od, key, project=_proj)
 
     with span("layernorm", key, "ln1"):
-        y = _layernorm(x, blk["ln1"])
+        y = layernorm(x, blk["ln1"], LN_EPS)
     qkv = proj(y, "qkv")  # (B, N, 3D)
     with span("attention", key):
         q, k, v = (t.reshape(b, -1, nh, hd) for t in qkv.chunk(3, dim=-1))
@@ -324,7 +237,7 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
         o = cast(o.reshape(b, -1, spec.dim))
     x = proj(o, "out", residual=x)
     with span("layernorm", key, "ln2"):
-        y = _layernorm(x, blk["ln2"])
+        y = layernorm(x, blk["ln2"], LN_EPS)
     # exact (erf) GELU, the timm/torch semantics
     y = proj(y, "mlp1", act="gelu")
     return proj(y, "mlp2", residual=x)
@@ -332,7 +245,7 @@ def _run_block(x, blk, spec, cast, attn_logits_dtype, key: str = "blk"):
 
 def _run_head(x, params, with_softmax: bool):
     with span("layernorm", "final"):
-        x = _layernorm(x, params["ln_final"])
+        x = layernorm(x, params["ln_final"], LN_EPS)
     with span("fc", "head"):
         logits = _proj(x[:, 0], params["head"], out_dtype=torch.float32)
     if with_softmax:
@@ -420,34 +333,8 @@ def prepare_params(spec: ViTSpec, params: dict, dtype=torch.bfloat16, *,
       (``models.prepare.dense_layer``); memory mode keeps bf16 codebooks
       under it.
     device: None means "cuda"; pass "cpu" to prepare for the CPU."""
-    device = resolve_device(device)
-    if not (_is_int8(dtype) or dtype in (torch.float32, torch.bfloat16)):
-        raise ValueError(f"vit.prepare_params: unsupported dtype {dtype}")
-    cb_dtype = torch.bfloat16 if _is_int8(dtype) else dtype
-    cin_map = _gemm_cin_map(spec)
-
-    def prep(p, path: str):
-        if isinstance(p, dict) and "codebooks" in p:
-            if memory:
-                return _cast_pq(p, cb_dtype, device)
-            rows = _decode_rows_np(_np(p["codebooks"]).astype(np.float32),
-                                   _np(p["assignments"]), cin_map[path])
-            if "perm" in p:
-                rows = rows[:, inverse_permutation(_np(p["perm"]))]
-            return dense_layer("weight", rows, p["bias"], dtype, device)
-        if isinstance(p, dict) and "weight_q" in p:
-            raise ValueError(
-                "vit.prepare_params: these params are prepared int8 already "
-                "(models.interop.family_params_from_jax carries JAX-prepared "
-                "ones)")
-        if isinstance(p, dict) and "weight" in p:
-            return dense_layer("weight", _np(p["weight"]).T, p["bias"],
-                               dtype, device)
-        if isinstance(p, dict):
-            return {k: prep(v, f"{path}.{k}") for k, v in p.items()}
-        return _tensor(_np(p).astype(np.float32), torch.float32, device)
-
-    return {name: prep(p, name) for name, p in params.items()}
+    return prepare_tree(params, _gemm_cin_map(spec), dtype, memory=memory,
+                        device=device, who="vit.prepare_params")
 
 
 def _gemm_cin_map(spec: ViTSpec) -> dict:

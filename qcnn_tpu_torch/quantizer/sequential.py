@@ -37,6 +37,7 @@ from qcnn_tpu_torch.models import network
 from qcnn_tpu_torch.models import resnet as R
 from qcnn_tpu_torch.models import vit as V
 from qcnn_tpu_torch.models.network import _to_device
+from qcnn_tpu_torch.models.transformer import layernorm
 from qcnn_tpu_torch.ops.conv import conv_layer
 from qcnn_tpu_torch.quantizer.kmeans import split
 from qcnn_tpu_torch.quantizer.pq import quantize_conv_layer, quantize_fc_layer
@@ -201,17 +202,17 @@ def quantize_vit_ec(
             rblk[name] = _to_device(qblk[name], dev)
             return rblk[name]
 
-        y = V._layernorm(a, rblk["ln1"])
+        y = layernorm(a, rblk["ln1"], V.LN_EPS)
         qkv = V._proj(y, quant("qkv", y))
         q, k, v = (t.reshape(b, -1, nh, hd) for t in qkv.chunk(3, dim=-1))
         o = V._masked_attention(q, k, v, 0).reshape(b, -1, spec.dim)
         x2 = a + V._proj(o, quant("out", o))
-        y2 = V._layernorm(x2, rblk["ln2"])
+        y2 = layernorm(x2, rblk["ln2"], V.LN_EPS)
         g = F.gelu(V._proj(y2, quant("mlp1", y2)))
         quant("mlp2", g)
         out[f"blk{i}"] = qblk
         a = V._run_block(a, rblk, spec, cast, torch.float32)
-    head_in = V._layernorm(a, run["ln_final"])[:, 0]
+    head_in = layernorm(a, run["ln_final"], V.LN_EPS)[:, 0]
     out["head"] = quant_gemm(dense["head"], head_in)
     return out
 

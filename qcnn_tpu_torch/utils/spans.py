@@ -12,9 +12,16 @@ LayerNorms (``qcnn.layernorm:blk<i>.ln1``, ``.ln2``,
 ``qcnn.layernorm:final``) and each block's attention from the logits
 through the second product and its casts (``qcnn.attention:blk<i>``); its
 projections are ``qcnn.fc:blk<i>.qkv``, ``.out``, ``.mlp1``, ``.mlp2`` and
-``qcnn.fc:head``. A profiler that is running records each as a range of
-the host's timeline; a kernel belongs to the innermost range around its
-launch.
+``qcnn.fc:head``. The Swin forward names its blocks ``s<i>b<j>`` (stage,
+block) in the same kinds (``qcnn.embed`` holds its patch LayerNorm too),
+and adds two: ``qcnn.window:s<i>b<j>.partition`` (the cyclic shift and
+the window partition of the block's normalized input) and
+``.reverse`` (the head merge, the window reverse and the shift back),
+and ``qcnn.merge:s<i>`` (the 2x2 gather of a patch merging and its
+LayerNorm; its reduction is ``qcnn.fc:s<i>.reduction``), with
+``qcnn.pool:head`` for the mean over the tokens. A profiler that is
+running records each as a range of the host's timeline; a kernel belongs
+to the innermost range around its launch.
 
 A range is torch's ``RecordFunction`` through ``_RecordFunctionFast``, at
 about 2 us a range on the host where ``torch.profiler.record_function``

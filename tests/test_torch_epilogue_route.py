@@ -6,7 +6,7 @@ was one place (the conv's and the FC's bias adds, ResNet's ``clamp_min``
 and shortcut, ViT's residual adds and exact GELU), bit for bit; the
 route's conditions; and the forms each family forward asks of the
 epilogue. The tests marked ``card`` hold the kernel to the plain chain at
-every epilogue shape of the benchmark's three cells, and each cell's
+every epilogue shape of the benchmark's four cells, and each cell's
 forward to its launches and to the bits of the same forward with the
 route held on the plain chain; they skip without a card. The file imports
 no JAX and nothing from ``tests``, so on a machine with a card and without
@@ -24,7 +24,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from qcnn_tpu_torch.models import common, network, prepare, resnet, synth, vit
+from qcnn_tpu_torch.models import (
+    common,
+    network,
+    prepare,
+    resnet,
+    swin,
+    synth,
+    vit,
+)
 from qcnn_tpu_torch.ops import fc as fc_ops
 from qcnn_tpu_torch.ops.cuda import epilogue_fused as ep
 
@@ -286,6 +294,26 @@ def test_vitl16_forward_forms(monkeypatch):
                      (F32, None, False): 1}
 
 
+def test_swinl_forward_forms(monkeypatch):
+    """Swin-L in memory mode, bf16: the 24 blocks of depths (2, 2, 18, 2)
+    each with qkv (the bias alone), out and mlp2 (the residual), mlp1
+    (exact GELU), the patch embedding's bias, the three reductions' (zero)
+    bias and the float32 head. The widths and the image are cut (64x64,
+    embed 32, window 4): the forms follow the depth and the stages, not
+    the widths."""
+    spec = swin.SwinSpec("Swin-L-depths-64px", patch=4, image_size=64,
+                         embed_dim=32, depths=(2, 2, 18, 2),
+                         heads=(1, 2, 4, 8), window=4)
+    params = synth.random_swin_pq_params(spec, seed=0)
+    prepared, fwd, _ = common.build_family_forward(
+        "swin", spec, params, memory=True, compute_dtype=BF16, device="cpu")
+    x = torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    forms = _recorded_forms(lambda: fwd(prepared, x), monkeypatch)
+    assert forms == {(BF16, None, False): 28,  # qkv 24, embedding, merges
+                     (BF16, "gelu", False): 24, (BF16, None, True): 48,
+                     (F32, None, False): 1}
+
+
 def test_alexnet_forward_forms(monkeypatch):
     """AlexNet in memory mode, bf16, B=4: the 5 convs' bias alone (their
     ReLUs stay layers of the spec); fc6-8 bring float32 sums with the bias
@@ -315,7 +343,7 @@ def card():
     return torch.device("cuda", 0)
 
 
-# every epilogue shape and form of the three cells' forwards:
+# every epilogue shape and form of the four cells' forwards:
 # (rows, C, product dtype, form)
 CELL_EPILOGUES = {
     "alexnet": [((256, 55, 55), 96, BF16, "bias"),
@@ -345,6 +373,16 @@ CELL_EPILOGUES = {
                ((128 * 577,), 1024, BF16, "bias-residual"),
                ((128 * 577,), 4096, BF16, "bias-gelu"),
                ((128 * 577,), 1024, BF16, "bias-residual")],
+    # the patch embedding; each stage's qkv, out and mlp2, mlp1; the
+    # reductions, whose bias is zero in the model
+    "swinl": [((128 * 96 * 96,), 192, BF16, "bias"),
+              *[((128 * g * g,), c, BF16, form)
+                for g, d in ((96, 192), (48, 384), (24, 768), (12, 1536))
+                for c, form in ((3 * d, "bias"), (d, "bias-residual"),
+                                (4 * d, "bias-gelu"))],
+              ((128 * 48 * 48,), 384, BF16, "bias"),
+              ((128 * 24 * 24,), 768, BF16, "bias"),
+              ((128 * 12 * 12,), 1536, BF16, "bias")],
 }
 CARD_CASES = [(cell, *case) for cell, cases in CELL_EPILOGUES.items()
               for case in cases]
@@ -389,7 +427,8 @@ def _cell(name: str, card):
     cfg_name, builder, batch = {
         "alexnet": ("alexnet-pq-mem", "alexnet_pq", 256),
         "resnet50": ("resnet50-pq-mem", "resnet_pq", 256),
-        "vitl16": ("vitl16-384-pq-mem", "vit_pq", 128)}[name]
+        "vitl16": ("vitl16-384-pq-mem", "vit_pq", 128),
+        "swinl": ("swinl-384-pq-mem", "swin_pq", 128)}[name]
     with open(os.path.join(ROOT, "bench_cuda", "configs",
                            f"{cfg_name}.json")) as f:
         cfg = json.load(f)
@@ -404,13 +443,15 @@ def _cell(name: str, card):
 
 @pytest.mark.card
 @pytest.mark.parametrize("name,launches", [("alexnet", 5), ("resnet50", 53),
-                                           ("vitl16", 97)])
+                                           ("vitl16", 97), ("swinl", 100)])
 def test_cell_forward_launches_the_kernel_and_keeps_the_bits(
         card, monkeypatch, name, launches):
     """The cell's forward launches ``epilogue_fused`` once an epilogue that
     fuses something (ViT: the 96 of its blocks and the patch embedding's
-    bias), and its output is the bits of the same forward with every
-    epilogue on the plain chain, torch's ops as before the kernel."""
+    bias; Swin-L: the 96 of its blocks, the patch embedding's and the
+    three reductions'), and its output is the bits of the same forward
+    with every epilogue on the plain chain, torch's ops as before the
+    kernel."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     fwd, x = _cell(name, card)

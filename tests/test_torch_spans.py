@@ -1,6 +1,7 @@
 """The ``qcnn.*`` spans of the port's forwards (``utils/spans.py``), on the
-CPU at small sizes: the names that ``network.forward`` and
-``resnet.forward`` emit under ``torch.profiler`` and their nesting, every
+CPU at small sizes: the names that ``network.forward``,
+``resnet.forward`` and ``swin.forward`` emit under ``torch.profiler`` and
+their nesting, every
 aten operator of a forward under a leaf span, nothing recorded with no
 profiler running, and the same output bits with and without one."""
 
@@ -10,12 +11,20 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from qcnn_tpu_torch import core
-from qcnn_tpu_torch.models import common, network, prepare, resnet, synth
+from qcnn_tpu_torch.models import (
+    common,
+    network,
+    prepare,
+    resnet,
+    swin,
+    synth,
+)
 from qcnn_tpu_torch.utils import spans
 from tests.torch_threads import torch_thread_cap as _torch_threads  # noqa: F401, autouse
 
 LEAF_KINDS = {"decode", "conv", "fc", "epilogue", "lrn", "pool", "relu",
-              "softmax", "residual"}
+              "softmax", "residual", "embed", "layernorm", "attention",
+              "window", "merge"}
 
 ALEXNET = core.ModelSpec(
     name="tiny", in_height=15, in_width=15, in_channels=8,
@@ -50,6 +59,27 @@ def _resnet_spans():
     return names
 
 
+SWIN = swin.swin_tiny_test()
+
+
+def _swin_spans():
+    """Each block's window partition and reverse, attention, LayerNorms
+    and four projections (the GELU and residual adds in their epilogues),
+    each merge's gather and LayerNorm beside its reduction."""
+    names = {"qcnn.forward", "qcnn.decode", "qcnn.embed",
+             "qcnn.layernorm:final", "qcnn.pool:head", "qcnn.fc:head",
+             "qcnn.softmax:head"}
+    for blk in swin.block_layout(SWIN):
+        k = blk.key
+        names |= {f"qcnn.layernorm:{k}.ln1", f"qcnn.layernorm:{k}.ln2",
+                  f"qcnn.window:{k}.partition", f"qcnn.window:{k}.reverse",
+                  f"qcnn.attention:{k}"}
+        names |= {f"qcnn.fc:{k}.{n}" for n in ("qkv", "out", "mlp1", "mlp2")}
+    for i in range(len(SWIN.depths) - 1):
+        names |= {f"qcnn.merge:s{i}", f"qcnn.fc:s{i}.reduction"}
+    return names
+
+
 def _alexnet(dtype):
     """AlexNet-like forward as the classifier runs it, in memory mode (int8:
     decoded at load): (fn(), spans it must emit)."""
@@ -78,6 +108,17 @@ def _resnet(dtype):
     return (lambda: fwd(prepared, x)), want
 
 
+def _swin(dtype):
+    params = synth.random_swin_pq_params(SWIN, seed=0)
+    prepared, fwd, _ = common.build_family_forward(
+        "swin", SWIN, params, memory=dtype != torch.int8,
+        compute_dtype=dtype, device="cpu")
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    want = _swin_spans() - ({"qcnn.decode"} if dtype == torch.int8
+                            else set())
+    return (lambda: fwd(prepared, x)), want
+
+
 CASES = {
     "alexnet-f32": (_alexnet, torch.float32),
     "alexnet-bf16": (_alexnet, torch.bfloat16),
@@ -85,6 +126,9 @@ CASES = {
     "resnet-f32": (_resnet, torch.float32),
     "resnet-bf16": (_resnet, torch.bfloat16),
     "resnet-int8": (_resnet, torch.int8),
+    "swin-f32": (_swin, torch.float32),
+    "swin-bf16": (_swin, torch.bfloat16),
+    "swin-int8": (_swin, torch.int8),
 }
 
 
@@ -131,7 +175,8 @@ def test_forward_emits_the_span_names_properly_nested(name):
         if n == "qcnn.forward":
             assert parent is None
         elif _kind(n) == "epilogue":
-            assert _kind(parent) in ("conv", "fc"), parent
+            # a product's: a conv, an FC, or Swin's patch embedding
+            assert _kind(parent) in ("conv", "fc", "embed"), parent
         else:
             assert parent == "qcnn.forward", (n, parent)
             assert f0 <= start and end <= f1

@@ -37,6 +37,7 @@ import torch
 from qcnn_tpu.models import vit as jvit
 from qcnn_tpu_torch.models import common as tcommon
 from qcnn_tpu_torch.models import synth
+from qcnn_tpu_torch.models import transformer
 from qcnn_tpu_torch.models import vit as tvit
 from qcnn_tpu_torch.models.interop import family_params_from_jax
 from qcnn_tpu_torch.ops import conv as conv_ops
@@ -118,6 +119,11 @@ def test_full_width_vit_b16_matches_jax(memory, dtype):
     _compare(jspec, tspec, params, 1, memory, dtype)
 
 
+def _routes(x, blk, od) -> dict:
+    """The block's routes decided from its input x."""
+    return transformer.block_routes(transformer.block_inputs(x, blk, od), blk)
+
+
 def test_vit_l_width_block_routes_mlp_to_the_fused_kernel():
     """At ViT-L's width the MLP GEMMs go to 'fgather' (pq_fc_fused) while
     fewer than 1025 rows reach them, qkv and out to the grouped decode;
@@ -129,23 +135,19 @@ def test_vit_l_width_block_routes_mlp_to_the_fused_kernel():
                                    memory=True, device="cpu")
     blk = prepared["blk0"]
     x = torch.zeros((3, tspec.seq_len, 1024), dtype=torch.bfloat16)
-    routes = tvit._block_routes(tvit._block_inputs(x, blk, torch.bfloat16),
-                                blk)
+    routes = _routes(x, blk, torch.bfloat16)
     assert {k: impl for k, (_, impl, _) in routes.items()} == {
         "qkv": "indecode", "out": "indecode", "mlp1": "fgather",
         "mlp2": "fgather"}
     # rows, not images, decide: 6 x 197 rows of ViT-L/16 fall back
     big = torch.zeros((6, 197, 1024), dtype=torch.bfloat16)
-    routes = tvit._block_routes(tvit._block_inputs(big, blk,
-                                                   torch.bfloat16), blk)
+    routes = _routes(big, blk, torch.bfloat16)
     assert {impl for _, impl, _ in routes.values()} == {"indecode"}
     five = torch.zeros((5, 197, 1024), dtype=torch.bfloat16)
-    routes = tvit._block_routes(tvit._block_inputs(five, blk,
-                                                   torch.bfloat16), blk)
+    routes = _routes(five, blk, torch.bfloat16)
     assert routes["mlp1"][1] == routes["mlp2"][1] == "fgather"
     # float32 activations keep the exact in-step decode
-    routes = tvit._block_routes(tvit._block_inputs(x.float(), blk, None),
-                                blk)
+    routes = _routes(x.float(), blk, None)
     assert {impl for _, impl, _ in routes.values()} == {"indecode"}
     _compare(jspec, tspec, params, 3, True, "bfloat16")
     _compare(jspec, tspec, params, 1, False, "float32")
@@ -376,7 +378,7 @@ def test_full_width_memory_launches(model, images, decodes, fused):
                     device="meta")
     for i in range(spec.depth):
         blk = prepared[f"blk{i}"]
-        routes = tvit._block_routes(tvit._block_inputs(x, blk, bf), blk)
+        routes = _routes(x, blk, bf)
         block = [impl for _, impl, _ in routes.values()]
         n_decode += "indecode" in block
         impls += block

@@ -24,7 +24,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from qcnn_tpu_torch.models import common, synth, vit
+from qcnn_tpu_torch.models import common, synth, transformer, vit
 from qcnn_tpu_torch.utils import spans
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -175,9 +175,9 @@ def test_every_projection_decodes_in_the_step_at_the_cell_rows():
            "mlp1": _meta_pq(d, 4 * d), "mlp2": _meta_pq(4 * d, d)}
     x = torch.empty(128, 577, d, dtype=torch.bfloat16,
                     device=torch.device("meta"))
-    inputs = vit._block_inputs(x, blk, torch.bfloat16)
+    inputs = transformer.block_inputs(x, blk, torch.bfloat16)
     assert {rows for rows, _, _ in inputs.values()} == {CELL_ROWS}
-    routes = vit._block_routes(inputs, blk)
+    routes = transformer.block_routes(inputs, blk)
     assert {name: impl for name, (_, impl, _) in routes.items()} == {
         name: "indecode" for name in blk}
     assert common.fc_memory_impl(128 * 576, _meta_pq(768, d),
