@@ -167,11 +167,22 @@ Phases, each fatal on failure (any exception exits non-zero):
 10b. Swin-L/4-w12 at 384x384 (1000 classes), synthetic PQ params (seed
    0), through build_family_forward at the benchmark cell's batch (B=128),
    each run through phase 5's loops, profile and launch checks:
+   first window_attention_fused (in a full run too), held to its plain
+   version (the window partition, the float32 chain and the window
+   reverse, on the card) at each of Swin-L's stage shapes at B=128 (grids
+   96, 48, 24 and 12 with 6, 12, 24 and 48 heads, window 12), each in the
+   forms its blocks take (with the shift mask in stages 0-2, without it in
+   all four), qkv read in place from one grid tensor, and timed beside the
+   chain and F.scaled_dot_product_attention (a yardstick only, on windows
+   partitioned before its timing, the bias cast to bf16 as its mask); the
+   row sums a forward's 24 blocks. Then:
    G: memory mode: pq_decode 29 a forward (the patch embedding, one
       grouped launch a block for its four projections, each reduction,
-      the head) and epilogue_fused 100 (the patch embedding, the four
-      projections of each of the 24 blocks, the three reductions);
-   H: decode at load: epilogue_fused 100; G agrees with H.
+      the head), epilogue_fused 100 (the patch embedding, the four
+      projections of each of the 24 blocks, the three reductions) and
+      window_attention_fused 24 (one a block);
+   H: decode at load: epilogue_fused 100, window_attention_fused 24; G
+      agrees with H.
 
 11. serving (serve/, cli.py), at full width from synthetic params (seed 0)
    and files the port's own writers put in a temporary directory (phase
@@ -431,8 +442,10 @@ ALEXNET_MEMORY_B256 = {**LRNS, "pq_decode": 1, "pq_fc_fused": 3,
 ALEXNET_MEMORY_B1 = {**LRNS, "pq_decode": 1, "pq_lut_gather": 3,
                      **EPILOGUES_ALEXNET}
 RESNET50_MEMORY = {"pq_conv_fused": 7, "pq_decode": 17, **EPILOGUES_RESNET50}
-EPILOGUES_SWIN_L = {"epilogue_fused": 100}
-SWIN_L_MEMORY = {"pq_decode": 29, **EPILOGUES_SWIN_L}
+# Swin-L's bf16 blocks: one window_attention_fused each (24), decoded at
+# load (SWIN_L_DECODE) and in memory mode
+SWIN_L_DECODE = {"epilogue_fused": 100, "window_attention_fused": 24}
+SWIN_L_MEMORY = {"pq_decode": 29, **SWIN_L_DECODE}
 # peak_alloc_bytes of the memory-mode runs when every conv decoded for
 # itself (this script's run of the version before the grouped decode, on an
 # H100 80GB HBM3): a group's weights now live until its block or step ends
@@ -2652,8 +2665,101 @@ def phase_vit(dev, gpu_name, vparams) -> dict:
 
 # phase 10b: Swin-L at the benchmark cell's batch, (run, mode, launches a
 # forward)
+# window_attention_fused's shapes at Swin-L/4-w12@384, B=128: (grid,
+# heads, shifted, blocks of a forward in that form)
+WINDOW_ATTENTION_SHAPES = (
+    (96, 6, False, 1), (96, 6, True, 1), (48, 12, False, 1),
+    (48, 12, True, 1), (24, 24, False, 9), (24, 24, True, 9),
+    (12, 48, False, 2))
+SWIN_WINDOW = 12
+
+
+def phase_window_attention(dev, flush, peaks) -> dict:
+    """window_attention_fused against its plain version (the window
+    partition, the float32 chain with the bias, the window reverse; both on
+    the card) at WINDOW_ATTENTION_SHAPES, bf16 qkv (B, G, G, 3 heads 32)
+    with N(0, 1) entries read in place, a N(0, 1) relative-position bias
+    plus the -100 shift mask in a shifted form; then timed beside the
+    chain and F.scaled_dot_product_attention, the library's attention, which
+    the port never calls: a yardstick only, on q, k and v already
+    partitioned into windows (the partition and reverse copies are not in
+    its time), with the bias cast to bf16 as its attn_mask (the port adds
+    it in float32), one a window in a shifted form (the mask expanded over
+    the batch before the timing, since the windows of an image repeat in
+    the batch, which a 4-D mask cannot broadcast). Bound: one read of q, k,
+    v and the bias and one write of o, or the two products at the bf16
+    peak. The limit, 1/32 of the largest |o|, is the card tests' (the
+    kernel sums in another order, its exp is ex2 and its division a
+    product with the row's reciprocal). Returns {"window_attention_fused":
+    the row of one forward's 24 blocks}."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.models import swin
+    from qcnn_tpu_torch.ops.cuda import window_attention_fused as wa
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    row = new_row()
+    w = SWIN_WINDOW
+    n = w * w
+    for grid, heads, shifted, blocks in WINDOW_ATTENTION_SHAPES:
+        c = heads * 32
+        qkv = torch.randn((SWIN_BATCH, grid, grid, 3 * c), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        bias = torch.randn((heads, n, n), generator=gen, device=dev)
+        if shifted:
+            bias = bias + swin.shift_mask(grid, w, w // 2).to(dev)[:, None]
+        kw = {"heads": heads, "window": w, "out_dtype": torch.bfloat16}
+
+        def kernel():
+            return wa.window_attention_fused(qkv, bias, **kw)
+
+        def plain():
+            return swin.window_attention_plain(qkv, bias, **kw)
+
+        label = (f"(B,G,heads,window)=({SWIN_BATCH},{grid},{heads},{w}) "
+                 f"{'shifted' if shifted else 'unshifted'} bf16")
+        got, want = kernel().float(), plain().float()
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        log(f"check window_attention_fused {label} max_abs_err={err:.3e} "
+            f"max|o|={top:.3e} (limit 1/32 of it)")
+        if not err <= top / 32:
+            raise AssertionError(f"window_attention_fused {label}: "
+                                 f"max_abs_err {err} > {top} / 32")
+        del got, want
+        ms = time_ms(kernel, flush)
+        plain_ms = time_ms(plain, flush)
+        qw, kw_, vw = swin.window_partition(qkv, w).view(
+            -1, n, 3, heads, 32).permute(2, 0, 3, 1, 4).unbind(0)
+        mask = bias.to(torch.bfloat16)
+        if shifted:
+            mask = mask.expand(SWIN_BATCH, *mask.shape).reshape(
+                -1, heads, n, n)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qw, kw_, vw, attn_mask=mask), flush)
+        nbytes = 4 * qkv.numel() // 3 * 2 + bias.numel() * 4
+        ops = 4 * SWIN_BATCH * (grid // w) ** 2 * heads * n * n * 32
+        b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
+        log(f"time window_attention_fused {label} x{blocks} a forward "
+            f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib:.5f}"
+            f" bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, operations"
+            f" {ops}) share={b_ms / ms:.3f} tflops={ops / ms / 1e9:.1f}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        add_timing(row, blocks, ms, plain_ms, lib, b_ms, nbytes, ops,
+                   peaks["bf16"], peaks)
+        del qkv, bias, qw, kw_, vw, mask
+    torch.cuda.empty_cache()
+    row = close_row(row)
+    log(f"time window_attention_fused a Swin-L forward (24 blocks) "
+        f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+        f"library_ms={row['library_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+        f"bound_by={row['bound_by']} "
+        f"share={row['bound_ms'] / row['ms']:.3f}")
+    return {"window_attention_fused": row}
+
+
 SWIN_BATCH = 128
-SWIN_RUNS = (("G", "memory", SWIN_L_MEMORY), ("H", "decode", EPILOGUES_SWIN_L))
+SWIN_RUNS = (("G", "memory", SWIN_L_MEMORY), ("H", "decode", SWIN_L_DECODE))
 
 
 def phase_swin(dev, gpu_name, sparams) -> dict:
@@ -4843,9 +4949,11 @@ def main() -> int:
     sparams = synth.random_swin_pq_params(swin.swin_l384(), seed=0)
     log(f"swin synthetic params seconds={time.perf_counter() - t0:.2f}")
     if args.only_swin:
+        rows = phase_window_attention(dev, flush, peaks)
         del flush
         counts = phase_swin(dev, gpu_name, sparams)
-        log(json.dumps({"partial": "swin only", "launches": counts}))
+        log(json.dumps({"partial": "swin only", "rows": rows,
+                        "launches": counts}))
         return 0
     check_f32_conv(dev)
     t0 = time.perf_counter()
@@ -4896,6 +5004,7 @@ def main() -> int:
     rows |= new_rows
     add_counts(general_counts, more_general)
     rows |= phase_attention(dev, flush, peaks)
+    rows |= phase_window_attention(dev, flush, peaks)
     epilogue_rows, epilogue_counts = phase_epilogue(dev, flush, peaks)
     rows |= epilogue_rows
     del flush
@@ -4977,6 +5086,7 @@ def main() -> int:
         "attention_fused": ("vit_b16 decode", "vit_b16 memory",
                             "vit_b16 int8", "vit_l16 memory",
                             "vit_l16 decode", "io vit_b16 family"),
+        "window_attention_fused": ("swin_l384 memory", "swin_l384 decode"),
         "epilogue_fused": ("epilogue_fused entry point", "alexnet auto",
                            "alexnet memory", "alexnet pallas",
                            "resnet50 memory", "vit_b16 decode",
@@ -5019,6 +5129,10 @@ def main() -> int:
         "epilogue_fused": ("qcnn_tpu_torch/csrc/epilogue_fused.cu",
                            "none: XLA's bias add, activation and residual "
                            "add after each product"),
+        "window_attention_fused": (
+            "qcnn_tpu_torch/csrc/window_attention_fused.cu",
+            "none: the JAX package has no Swin; the port's chain, "
+            "qcnn_tpu_torch/models/swin.py _window_attention"),
         "pq_fc_fused_general": (
             "qcnn_tpu_torch/csrc/pq_fc_fused_general.cu",
             "qcnn_tpu/ops/pallas/pq_fc_fused.py:125"),

@@ -33,14 +33,21 @@ patch merging concatenates each 2x2 neighbourhood in the order x[0::2,
 and the reduction. The head: a final LayerNorm, the mean over the tokens,
 the classifier.
 
-Attention (:func:`_window_attention`) is the materialized chain; nothing
-of it enters ``attention_fused`` (head dimension 64 only, no bias). Its
-rounding points, in bf16:
+Attention (:func:`_window_attention`) takes the qkv projection's output on
+the block's (rolled) grid and returns its output on the grid. On a bf16
+CUDA tensor with a head dimension of 32 and at most 144 tokens a window
+(:func:`window_attention_route`) it is one launch of the
+``window_attention_fused`` kernel (``ops/cuda/window_attention_fused.py``),
+which does the window partition, the head split and merge and the window
+reverse through its addressing; everywhere else (the CPU, other dtypes,
+larger windows) it is :func:`window_attention_plain`, the materialized
+chain between :func:`window_partition` and :func:`window_reverse`. Both
+round where the chain rounds, in bf16:
 
 - q, k and v are the bf16 output of the qkv projection;
 - the logits are float32: q k^T summed in float32 and divided by
-  sqrt(head dim) in float32 (``transformer.logits`` with float32 logits), never
-  rounded to bf16;
+  sqrt(head dim) in float32 (``transformer.logits`` with float32 logits),
+  never rounded to bf16;
 - the relative-position bias, plus the -100 mask in a shifted block (the
   two summed first, a (windows, heads, N, N) float32 tensor), is added to
   the logits in float32;
@@ -48,9 +55,10 @@ rounding points, in bf16:
   the activation dtype;
 - the value product sums in float32 and emits the activation dtype.
 
-The out projection runs after the window reverse and the shift back: a
-product that treats every token alike commutes with that permutation, and
-so the residual add joins its epilogue, as in ViT.
+The qkv projection runs on the rolled grid before any window partition,
+and the out projection after the shift back: a product that treats every
+token alike commutes with those permutations, so the residual add joins
+the out projection's epilogue, as in ViT.
 
 In memory mode each projection is routed by ``common.fc_memory_impl`` on
 its rows (B x tokens); a block's projections that decode in the step are
@@ -79,6 +87,7 @@ from qcnn_tpu_torch.models.transformer import (
     proj,
 )
 from qcnn_tpu_torch.ops import fc as fc_ops
+from qcnn_tpu_torch.ops.cuda import window_attention_fused as wa_kernel
 from qcnn_tpu_torch.utils.spans import span
 
 MASK_VALUE = -100.0  # the published shift mask's value for a masked pair
@@ -381,20 +390,49 @@ def _run_embed(x, params, spec, cast):
         return layernorm(x, params["patch_norm"], LN_EPS)
 
 
-def _window_attention(qkv, blk, heads: int, out_dtype):
-    """(B x windows, N, 3C) qkv -> (B x windows, heads, N, head dim) in
-    ``out_dtype`` (float32 when None): float32 logits plus the block's
-    bias and mask, a float32 softmax, the probabilities in v's dtype."""
-    bw, n, c3 = qkv.shape
+def window_attention_route(device: torch.device, dtype: torch.dtype,
+                           hd: int, n: int) -> str:
+    """The form :func:`_window_attention` takes: ``"kernel"``
+    (``window_attention_fused``) for bf16 qkv on a CUDA device with a head
+    dimension the kernel is compiled for and windows of at most its
+    ``MAX_TOKENS`` tokens (n = window²), else ``"plain"`` (the window
+    partition, the materialized chain and the window reverse: the CPU,
+    float32, other head dimensions, larger windows)."""
+    if (device.type == "cuda" and dtype == torch.bfloat16
+            and hd in wa_kernel.HEAD_DIMS and n <= wa_kernel.MAX_TOKENS):
+        return "kernel"
+    return "plain"
+
+
+def window_attention_plain(qkv, bias, *, heads: int, window: int,
+                           out_dtype=None):
+    """(B, G, G, 3C) qkv on a block's (rolled) grid and the block's bias
+    (:func:`_window_bias`) -> (B, G, G, C) in ``out_dtype`` (float32 when
+    None), as a chain: the window partition, float32 logits plus the bias,
+    a float32 softmax, the probabilities in qkv's dtype, the product with
+    v, the window reverse with the heads merged. The kernel's function."""
+    grid = qkv.shape[1]
+    x = window_partition(qkv, window)  # (B x windows, N, 3C)
+    bw, n, c3 = x.shape
     hd = c3 // (3 * heads)
-    q, k, v = qkv.view(bw, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    q, k, v = x.view(bw, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
     att = logits(q, k.transpose(-1, -2), hd, torch.float32)
-    bias = _window_bias(blk)
     windows = bias.shape[0] if bias.dim() == 4 else 1
     att.view(-1, windows, heads, n, n).add_(bias)
     probs = torch.softmax(att, dim=-1, dtype=torch.float32)
     del att
-    return fc_ops.matmul(probs.to(v.dtype), v, out_dtype)
+    o = fc_ops.matmul(probs.to(v.dtype), v, out_dtype)
+    return window_reverse(o, window, grid)
+
+
+def _window_attention(qkv, bias, geo: Block, out_dtype):
+    """:func:`window_attention_plain`'s function on the route's form."""
+    hd = qkv.shape[-1] // (3 * geo.heads)
+    kw = {"heads": geo.heads, "window": geo.window, "out_dtype": out_dtype}
+    if window_attention_route(qkv.device, qkv.dtype, hd,
+                              geo.window ** 2) == "kernel":
+        return wa_kernel.window_attention_fused(qkv, bias, **kw)
+    return window_attention_plain(qkv, bias, **kw)
 
 
 def _run_block(x, blk, geo: Block, spec: SwinSpec, cast):
@@ -409,14 +447,14 @@ def _run_block(x, blk, geo: Block, spec: SwinSpec, cast):
     with span("layernorm", key, "ln1"):
         y = layernorm(x, blk["ln1"], LN_EPS)
     with span("window", key, "partition"):
-        y = y.view(b, geo.grid, geo.grid, -1)
-        y = window_partition(_roll(y, -geo.shift), geo.window)
-    qkv = run(y, "qkv")  # (B x windows, N, 3C)
+        y = _roll(y.view(b, geo.grid, geo.grid, -1), -geo.shift)
+        y = y.reshape(b, -1, y.shape[-1])  # the rolled grid's tokens
+    qkv = run(y, "qkv")
     with span("attention", key):
-        o = _window_attention(qkv, blk, geo.heads, od)
+        o = _window_attention(qkv.view(b, geo.grid, geo.grid, -1),
+                              _window_bias(blk), geo, od)
     with span("window", key, "reverse"):
-        o = _roll(window_reverse(o, geo.window, geo.grid), geo.shift)
-        o = cast(o.reshape(b, -1, geo.dim))
+        o = cast(_roll(o, geo.shift).reshape(b, -1, geo.dim))
     x = run(o, "out", residual=x)
     with span("layernorm", key, "ln2"):
         y = layernorm(x, blk["ln2"], LN_EPS)

@@ -10,6 +10,7 @@ from qcnn_tpu_torch.ops.cuda import (
     pq_fc,
     pq_fc_fused,
     pq_lut_gather,
+    window_attention_fused,
 )
 
 KERNELS = {
@@ -21,6 +22,7 @@ KERNELS = {
     "pq_fc": pq_fc.KERNEL,
     "attention_fused": attention_fused.KERNEL,
     "epilogue_fused": epilogue_fused.KERNEL,
+    "window_attention_fused": window_attention_fused.KERNEL,
     # the general kernels, for the shapes that the two wgmma kernels, the
     # staged gather and the register-window LRN do not take
     "pq_fc_fused_general": pq_fc_fused.GENERAL,

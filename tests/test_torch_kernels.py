@@ -239,6 +239,7 @@ def test_plain_versions_do_not_count_launches(rng):
     assert set(KERNELS) == {"pq_decode", "pq_lut_gather", "pq_fc_fused",
                             "lrn_fused", "pq_conv_fused", "pq_fc",
                             "attention_fused", "epilogue_fused",
+                            "window_attention_fused",
                             "pq_fc_fused_general", "pq_conv_fused_general",
                             "pq_lut_gather_general", "lrn_fused_general"}
 

@@ -5,7 +5,9 @@ Swin forward against the benchmark's plain float32 reference
 index and the merge order against the published construction, the spec,
 parameter and FLOP count of ``bench_cuda/builders/swin_pq.py``, the
 memory-mode routing at the cell's rows, the family wiring (checkpoint,
-CLI) and the ``qcnn.*`` spans of a Swin forward.
+CLI) and the ``qcnn.*`` spans of a Swin forward. The window attention's
+route and kernel have their own file,
+``tests/test_torch_window_attention_route.py``.
 
 The CPU tests run a small Swin (64x64, patch 4, window 4, width 32, grids
 16, 8, 4 and 2: stages 0-1 shift and mask, stage 2 is one window and
@@ -516,8 +518,9 @@ def test_cell_forward_launches_on_the_card(card):
     """29 ``pq_decode`` launches a forward (one grouped decode a block, the
     patch embedding's, the three reductions', the head's), one
     ``epilogue_fused`` for each of the 96 projections of the blocks, the
-    patch embedding and the three reductions, and no attention or fused
-    decode-GEMM kernel."""
+    patch embedding and the three reductions, one
+    ``window_attention_fused`` a block (24), and no ViT attention or
+    fused decode-GEMM kernel."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     fwd, x = _cell_forward(card)
@@ -529,7 +532,8 @@ def test_cell_forward_launches_on_the_card(card):
     after = cuda_ops.launches()
     got = {k: after[k] - before.get(k, 0) for k in after
            if after[k] != before.get(k, 0)}
-    assert got == {"pq_decode": 29, "epilogue_fused": 100}, got
+    assert got == {"pq_decode": 29, "epilogue_fused": 100,
+                   "window_attention_fused": 24}, got
     assert probs.shape == (CELL_BATCH, 1000) and torch.isfinite(probs).all()
 
 
@@ -537,9 +541,12 @@ def test_cell_forward_launches_on_the_card(card):
 def test_every_kernel_of_a_traced_step_lies_in_a_span(card):
     """Each device activity of a traced step, joined to its launch, lies
     under a ``qcnn.*`` span narrower than the forward; only the read-back
-    of the probabilities is outside. The window kind holds the rolls and
-    the partition and reverse copies (none in stage 3, one window), the
-    merge kind the three gathers and their LayerNorms."""
+    of the probabilities is outside. The window kind holds the rolls of
+    the 11 shifted blocks (two kernels a roll of two axes, one roll each
+    way: 44), the partition and reverse being the attention kernel's
+    addressing; the attention kind one ``window_attention_fused`` a block
+    and, in each shifted block, the sum of its bias and mask; the merge
+    kind the three gathers and their LayerNorms."""
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from bench_cuda import spans as bench_spans
@@ -561,4 +568,5 @@ def test_every_kernel_of_a_traced_step_lies_in_a_span(card):
             "decode", "embed", "pool", "softmax"} <= set(got["kinds"])
     assert got["kinds"]["decode"]["kernels"] == 24
     assert got["kinds"]["merge"]["kernels"] >= 3
-    assert got["kinds"]["window"]["kernels"] >= 2 * 22
+    assert got["kinds"]["window"]["kernels"] == 2 * 2 * 11
+    assert got["kinds"]["attention"]["kernels"] == 24 + 11
