@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
     python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
     python3 chip_smoke.py --only-swin    # phases 1-2 and 10b (Swin-L)
+    python3 chip_smoke.py --only-maxvit  # phases 1-2 and 10c (MaxViT-L)
     python3 chip_smoke.py --only-serve   # phases 1-2 and 11 (serving)
     python3 chip_smoke.py --only-quantize  # phases 1-2 and 12 (quantizer)
     python3 chip_smoke.py --only-profile   # phases 1-2 and 13 (profile)
@@ -183,6 +184,23 @@ Phases, each fatal on failure (any exception exits non-zero):
       window_attention_fused 24 (one a block);
    H: decode at load: epilogue_fused 100, window_attention_fused 24; G
       agrees with H.
+10c. MaxViT-L at 384x384 (1000 classes), synthetic PQ params (seed 0),
+   through build_family_forward at the benchmark cell's batch (B=128):
+   first window_attention_fused held to its plain version (the partition,
+   the float32 chain, the reverse, on the card) at each of MaxViT-L's
+   stage shapes at B=128 (grids 96, 48, 24 and 12 with 4, 8, 16 and 32
+   heads, partition 12), in both partitions (block and grid: grid windows
+   read tokens G / 12 apart), qkv read in place, and timed beside the
+   chain (the row sums a forward's 48 launches); and epilogue_fused's
+   gelu_tanh (code 3) at MaxViT-L's GELU epilogues against torch's chain
+   with F.gelu(approximate="tanh"), bit for bit but one bf16 step where
+   the card's tanhf differs from torch's build. Then:
+   I: memory mode: pq_decode 74 a forward (the stem's conv2, one grouped
+      launch an MBConv and a partition block, the head's two FCs),
+      pq_fc_fused 4 (stage 3's squeeze-excite FCs), epilogue_fused 271,
+      window_attention_fused 48 (24 block, 24 grid);
+   J: decode at load: epilogue_fused 271, window_attention_fused 48; I
+      agrees with J.
 
 11. serving (serve/, cli.py), at full width from synthetic params (seed 0)
    and files the port's own writers put in a temporary directory (phase
@@ -390,7 +408,8 @@ Limits (the script fails past them):
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
 neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
---only-io, --only-vit, --only-swin, --only-serve, --only-quantize,
+--only-io, --only-vit, --only-swin, --only-maxvit, --only-serve,
+--only-quantize,
 --only-profile, --only-parallel, --only-a13, --gather-times or
 --quantize-repro it stops early and prints neither.
 """
@@ -446,6 +465,14 @@ RESNET50_MEMORY = {"pq_conv_fused": 7, "pq_decode": 17, **EPILOGUES_RESNET50}
 # load (SWIN_L_DECODE) and in memory mode
 SWIN_L_DECODE = {"epilogue_fused": 100, "window_attention_fused": 24}
 SWIN_L_MEMORY = {"pq_decode": 29, **SWIN_L_DECODE}
+# MaxViT-L's bf16 forward at B=128: the stem's 2 convs, an MBConv's conv1,
+# depthwise conv and conv3 (and proj in a stage's first block: 4), the 4
+# projections of each of its 48 partition blocks, the head's pre-logits;
+# one window_attention_fused a partition block; in memory mode one grouped
+# decode an MBConv and a partition block, the stem's conv2 and the head's
+# (74), and stage 3's squeeze-excite FCs (4096 wide) in pq_fc_fused
+MAXVIT_L_DECODE = {"epilogue_fused": 271, "window_attention_fused": 48}
+MAXVIT_L_MEMORY = {"pq_decode": 74, "pq_fc_fused": 4, **MAXVIT_L_DECODE}
 # peak_alloc_bytes of the memory-mode runs when every conv decoded for
 # itself (this script's run of the version before the grouped decode, on an
 # H100 80GB HBM3): a group's weights now live until its block or step ends
@@ -2793,6 +2820,156 @@ def phase_swin(dev, gpu_name, sparams) -> dict:
     return counts
 
 
+# phase 10c: MaxViT-L at the benchmark cell's batch. window_attention_fused's
+# shapes there: (grid, heads, blocks of a forward at that grid)
+MAXVIT_BATCH = 128
+MAXVIT_PARTITION = 12
+MAXVIT_ATTENTION_SHAPES = ((96, 4, 2), (48, 8, 6), (24, 16, 14), (12, 32, 2))
+# the GELU epilogues (bias + gelu_tanh): the stem's conv1, each stage's
+# first-block expansion (at the input map), depthwise conv and mlp1
+MAXVIT_GELU_SHAPES = (
+    ((MAXVIT_BATCH, 192, 192), 128),
+    *(((MAXVIT_BATCH, 2 * g, 2 * g), 4 * c) for g, c in
+      ((96, 128), (48, 256), (24, 512), (12, 1024))),
+    *(((MAXVIT_BATCH * g * g,), 4 * c) for g, c in
+      ((96, 128), (48, 256), (24, 512), (12, 1024))))
+MAXVIT_RUNS = (("I", "memory", MAXVIT_L_MEMORY),
+               ("J", "decode", MAXVIT_L_DECODE))
+
+
+def phase_maxvit_kernels(dev, flush, peaks) -> dict:
+    """window_attention_fused at MAXVIT_ATTENTION_SHAPES in both partitions
+    against its plain version (limit 1/32 of the largest |o|, the card
+    tests'), timed beside the chain; bound: one read of q, k, v and the
+    bias and one write of o, or the two products at the bf16 peak. Then
+    epilogue_fused with gelu_tanh at MAXVIT_GELU_SHAPES against torch's
+    chain, bit for bit or one bf16 step, the first timed. Returns
+    {"window_attention_fused grid": the row of a forward's 24 grid
+    launches, "... block": of its 24 block launches}."""
+    from qcnn_tpu_torch.models import swin
+    from qcnn_tpu_torch.ops.cuda import epilogue_fused as ep
+    from qcnn_tpu_torch.ops.cuda import window_attention_fused as wa
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    w = MAXVIT_PARTITION
+    n = w * w
+    rows = {}
+    for part in ("block", "grid"):
+        row = new_row()
+        for grid, heads, blocks in MAXVIT_ATTENTION_SHAPES:
+            c = heads * 32
+            qkv = torch.randn((MAXVIT_BATCH, grid, grid, 3 * c),
+                              generator=gen, device=dev).to(torch.bfloat16)
+            bias = torch.randn((heads, n, n), generator=gen, device=dev)
+            kw = {"heads": heads, "window": w, "out_dtype": torch.bfloat16,
+                  "partition": part}
+
+            def kernel():
+                return wa.window_attention_fused(qkv, bias, **kw)
+
+            def plain():
+                return swin.window_attention_plain(qkv, bias, **kw)
+
+            label = (f"(B,G,heads,window)=({MAXVIT_BATCH},{grid},{heads},"
+                     f"{w}) {part} bf16")
+            got, want = kernel().float(), plain().float()
+            err = (got - want).abs().max().item()
+            top = want.abs().max().item()
+            log(f"check window_attention_fused maxvit {label} "
+                f"max_abs_err={err:.3e} max|o|={top:.3e} (limit 1/32 of it)")
+            if not err <= top / 32:
+                raise AssertionError(f"window_attention_fused {label}: "
+                                     f"max_abs_err {err} > {top} / 32")
+            del got, want
+            ms = time_ms(kernel, flush)
+            plain_ms = time_ms(plain, flush)
+            nbytes = 4 * qkv.numel() // 3 * 2 + bias.numel() * 4
+            ops = 4 * MAXVIT_BATCH * (grid // w) ** 2 * heads * n * n * 32
+            b_ms, by = bound(nbytes, ops, peaks["bf16"], peaks)
+            log(f"time window_attention_fused maxvit {label} x{blocks} a "
+                f"forward kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                f"bound_ms={b_ms:.5f} bound_by={by} (bytes {nbytes}, "
+                f"operations {ops}) share={b_ms / ms:.3f} "
+                f"tflops={ops / ms / 1e9:.1f}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            add_timing(row, blocks, ms, plain_ms, plain_ms, b_ms, nbytes,
+                       ops, peaks["bf16"], peaks)
+            del qkv, bias
+        torch.cuda.empty_cache()
+        row = close_row(row)
+        log(f"time window_attention_fused a MaxViT-L forward's 24 {part} "
+            f"launches kernel_ms={row['ms']:.5f} plain_ms="
+            f"{row['plain_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+            f"bound_by={row['bound_by']} "
+            f"share={row['bound_ms'] / row['ms']:.3f}")
+        rows[f"window_attention_fused {part}"] = row
+    for i, (rows_, c) in enumerate(MAXVIT_GELU_SHAPES):
+        shape = (*rows_, c)
+        y = (torch.randn(shape, generator=gen, device=dev) * 2).to(
+            torch.bfloat16)
+        args = dict(bias=torch.randn(c, generator=gen, device=dev) * 0.1,
+                    act="gelu_tanh")
+        got = ep.epilogue_fused(y, **args)
+        want = ep.epilogue_plain(y, torch.bfloat16, **args)
+        same = got.view(torch.int16) == want.view(torch.int16)
+        differ = int((~same).sum())
+        worst = 0.0
+        if differ:
+            step = (got.float() - want.float()).abs()[~same]
+            ulp = want.float().abs()[~same].clamp_min(1e-38) * 2.0 ** -7
+            worst = float((step / ulp).max())
+        label = f"{shape} bf16 bias=True act=gelu_tanh residual=False"
+        log(f"check epilogue_fused {label}: elements differing from the "
+            f"chain={differ} of {got.numel()} (largest in bf16 steps "
+            f"{worst:.3f})")
+        if worst > 1.0:
+            raise AssertionError(f"epilogue_fused {label}: {differ} "
+                                 f"elements differ from the chain")
+        if i < 2:
+            ms = time_ms(lambda: ep.epilogue_fused(y, **args), flush)
+            plain_ms = time_ms(
+                lambda: ep.epilogue_plain(y, torch.bfloat16, **args), flush)
+            nbytes = y.numel() * 4
+            b_ms, by = bound(nbytes, 0.0, peaks["bf16"], peaks)
+            log(f"time epilogue_fused {label} kernel_ms={ms:.5f} "
+                f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} bound_by={by} "
+                f"(bytes {nbytes}) share={b_ms / ms:.3f}")
+        del y, got, want, same
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_maxvit(dev, gpu_name, mparams) -> dict:
+    """Phase 10c: MaxViT-L at 384x384, synthetic PQ params (seed 0),
+    through build_family_forward at B=128: runs I (memory mode) and J
+    (decode at load) of MAXVIT_RUNS, each counted from 0 just before it and
+    profiled; I agrees with J. Returns the launch counts of each run."""
+    from qcnn_tpu_torch.models import common, maxvit
+
+    spec = maxvit.maxvit_l384()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((MAXVIT_BATCH, spec.image_size, spec.image_size, 3),
+                    generator=gen, device=dev)
+    probs, counts = {}, {}
+    for run, mode, per_fwd in MAXVIT_RUNS:
+        t0 = time.perf_counter()
+        prepared, fwd_fn, _ = common.build_family_forward(
+            "maxvit", spec, mparams, memory=mode == "memory",
+            compute_dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        probs[run], counts[f"maxvit_l384 {mode}"] = drive(
+            f"maxvit_l384 {mode} B={MAXVIT_BATCH} (run {run})",
+            lambda: fwd_fn(prepared, x), MAXVIT_BATCH, spec.num_classes,
+            steps=3, per_fwd=per_fwd, gpu_name=gpu_name,
+            resident=tensor_bytes(prepared), prep_s=prep_s)
+        del prepared, fwd_fn
+        torch.cuda.empty_cache()
+    agree(f"maxvit_l384 memory vs decode at load B={MAXVIT_BATCH} (runs I "
+          f"vs J)", probs["J"], probs["I"], 5e-3, 0.99)
+    return counts
+
+
 # phase 11: serving. The AlexNet engine takes serving_defaults' ladder (the
 # JAX package's); (concurrency, requests) of its closed-loop runs; the
 # buckets whose warm forward is timed; the ResNet-50 run
@@ -4838,6 +5015,8 @@ def main() -> int:
                            "phase 10 (ViT)")
     only.add_argument("--only-swin", action="store_true",
                       help="stop after the build and phase 10b (Swin-L)")
+    only.add_argument("--only-maxvit", action="store_true",
+                      help="stop after the build and phase 10c (MaxViT-L)")
     only.add_argument("--only-serve", action="store_true",
                       help="stop after the build and phase 11 (serving)")
     only.add_argument("--only-quantize", action="store_true",
@@ -4884,7 +5063,7 @@ def main() -> int:
         quantize_repro(torch.device("cuda", 0), smi)
         return 0
     global time_ms, flush_buffer
-    from qcnn_tpu_torch.models import resnet, swin, synth, vit, zoo
+    from qcnn_tpu_torch.models import maxvit, resnet, swin, synth, vit, zoo
     from qcnn_tpu_torch.ops import cuda as cuda_ops
     from qcnn_tpu_torch.ops.cuda import _build
     from qcnn_tpu_torch.utils.timing import flush_buffer, time_ms
@@ -4946,6 +5125,16 @@ def main() -> int:
         log(json.dumps({"partial": "a13 only", "launches": counts}))
         return 0
     t0 = time.perf_counter()
+    mparams = synth.random_maxvit_pq_params(maxvit.maxvit_l384(), seed=0)
+    log(f"maxvit synthetic params seconds={time.perf_counter() - t0:.2f}")
+    if args.only_maxvit:
+        rows = phase_maxvit_kernels(dev, flush, peaks)
+        del flush
+        counts = phase_maxvit(dev, gpu_name, mparams)
+        log(json.dumps({"partial": "maxvit only", "rows": rows,
+                        "launches": counts}))
+        return 0
+    t0 = time.perf_counter()
     sparams = synth.random_swin_pq_params(swin.swin_l384(), seed=0)
     log(f"swin synthetic params seconds={time.perf_counter() - t0:.2f}")
     if args.only_swin:
@@ -5005,6 +5194,7 @@ def main() -> int:
     add_counts(general_counts, more_general)
     rows |= phase_attention(dev, flush, peaks)
     rows |= phase_window_attention(dev, flush, peaks)
+    phase_maxvit_kernels(dev, flush, peaks)
     epilogue_rows, epilogue_counts = phase_epilogue(dev, flush, peaks)
     rows |= epilogue_rows
     del flush
@@ -5021,6 +5211,8 @@ def main() -> int:
     counts |= phase_vit(dev, gpu_name, vparams)
     # phase 10b: Swin-L
     counts |= phase_swin(dev, gpu_name, sparams)
+    # phase 10c: MaxViT-L
+    counts |= phase_maxvit(dev, gpu_name, mparams)
     # phase 11: serving
     serve_counts, fc_err = phase_serve(spec, params, rparams, geo, dev,
                                        peaks, smi)
@@ -5056,7 +5248,8 @@ def main() -> int:
                       "io alexnet classify", "io resnet50 family",
                       "vit_b16 memory", "vit_l16 memory",
                       "io vit_b16 family", "swin_l384 memory",
-                      "serve alexnet memory", "serve resnet50 memory",
+                      "maxvit_l384 memory", "serve alexnet memory",
+                      "serve resnet50 memory",
                       f"quantize alexnet memory B={QUANT_BATCH}",
                       "quantize alexnet memory B=1",
                       f"quantize {QUANT_FAMILY} memory", "a4 gemm",
@@ -5070,7 +5263,8 @@ def main() -> int:
                           "a13 alexnet dcp B=1"),
         "pq_fc_fused": ("alexnet memory", "alexnet int8 memory",
                         "io alexnet classify", "io alexnet evaluate_dataset",
-                        "vit_l16 memory", "serve alexnet memory",
+                        "vit_l16 memory", "maxvit_l384 memory",
+                        "serve alexnet memory",
                         f"quantize alexnet memory B={QUANT_BATCH}",
                         f"a13 alexnet dcp B={A13_STORE_BATCH}",
                         "a13 reference layout"),
@@ -5086,13 +5280,16 @@ def main() -> int:
         "attention_fused": ("vit_b16 decode", "vit_b16 memory",
                             "vit_b16 int8", "vit_l16 memory",
                             "vit_l16 decode", "io vit_b16 family"),
-        "window_attention_fused": ("swin_l384 memory", "swin_l384 decode"),
+        "window_attention_fused": ("swin_l384 memory", "swin_l384 decode",
+                                   "maxvit_l384 memory",
+                                   "maxvit_l384 decode"),
         "epilogue_fused": ("epilogue_fused entry point", "alexnet auto",
                            "alexnet memory", "alexnet pallas",
                            "resnet50 memory", "vit_b16 decode",
                            "vit_b16 memory", "vit_l16 memory",
                            "vit_l16 decode", "swin_l384 memory",
-                           "swin_l384 decode", "io alexnet classify",
+                           "swin_l384 decode", "maxvit_l384 memory",
+                           "maxvit_l384 decode", "io alexnet classify",
                            "io resnet50 family", "io vit_b16 family",
                            "serve alexnet memory", "serve resnet50 memory",
                            "a13 reference layout"),

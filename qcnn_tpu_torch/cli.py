@@ -30,10 +30,11 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 # Family-model registry names (models/resnet.py RESNETS, models/vit.py
-# VITS, models/swin.py SWINS), kept as a literal so parser construction
-# stays import-light.
+# VITS, models/swin.py SWINS, models/maxvit.py MAXVITS), kept as a literal
+# so parser construction stays import-light.
 _FAMILY_MODELS = ("resnet18", "resnet50", "resnet101", "resnet152",
-                  "vit_s16", "vit_b16", "vit_l16", "swin_l384")
+                  "vit_s16", "vit_b16", "vit_l16", "swin_l384",
+                  "maxvit_l384")
 _DTYPES = ("bfloat16", "float32", "int8")
 # --store: orbax stays a choice so that a JAX package command line fails
 # with the store's own message (formats/checkpoint.py), not argparse's
@@ -540,8 +541,8 @@ def cmd_quantize(args) -> int:
 
 
 # ---------------------------------------------------------------------------
-# make-family — build a quantized ResNet/ViT/Swin checkpoint (random dense
-# init, or a torch state_dict)
+# make-family — build a quantized ResNet/ViT/Swin/MaxViT checkpoint (random
+# dense init, or a torch state_dict)
 # ---------------------------------------------------------------------------
 
 def _family_module(model: str):
@@ -554,6 +555,10 @@ def _family_module(model: str):
         from qcnn_tpu_torch.models import swin as fam
 
         return "swin", fam, fam.SWINS[model]()
+    if model.startswith("maxvit"):
+        from qcnn_tpu_torch.models import maxvit as fam
+
+        return "maxvit", fam, fam.MAXVITS[model]()
     from qcnn_tpu_torch.models import vit as fam
 
     return "vit", fam, fam.VITS[model]()
@@ -564,11 +569,12 @@ def cmd_make_family(args) -> int:
 
     gen = _quantizer_generator(args)
     family, fam, spec = _family_module(args.model)
-    if family == "swin" and (args.from_torch or args.calib_npy
-                             or args.calib_random):
+    if family in ("swin", "maxvit") and (args.from_torch or args.calib_npy
+                                         or args.calib_random):
         log(f"make-family {args.model}: --from-torch and the "
             "error-corrected calibration (--calib-npy, --calib-random) take "
-            "ResNet and ViT; Swin quantizes its synthetic init plainly")
+            "ResNet and ViT; Swin and MaxViT quantize their synthetic init "
+            "plainly")
         return 2
     if args.from_torch:
         from qcnn_tpu_torch.models import torch_import
@@ -861,10 +867,11 @@ def cmd_profile(args) -> int:
 
 
 def _profile_family(args, device) -> int:
-    """Per-segment time table for ResNet/ViT/Swin (the family analogue of
-    the per-layer DispElpsTime tables). --conv-impl/--fc-impl 'auto' decodes
-    the weights at load, as the JAX package's command does; 'memory' keeps
-    them compressed and decodes in the step (prepare_params(memory=True))."""
+    """Per-segment time table for ResNet/ViT/Swin/MaxViT (the family
+    analogue of the per-layer DispElpsTime tables). --conv-impl/--fc-impl
+    'auto' decodes the weights at load, as the JAX package's command does;
+    'memory' keeps them compressed and decodes in the step
+    (prepare_params(memory=True))."""
     import numpy as np
 
     from qcnn_tpu_torch.eval.profiler import profile_segments
@@ -1022,7 +1029,7 @@ def build_parser() -> argparse.ArgumentParser:
     q.set_defaults(fn=cmd_quantize)
 
     mf = sub.add_parser("make-family",
-                        help="build a ResNet/ViT/Swin PQ checkpoint")
+                        help="build a ResNet/ViT/Swin/MaxViT PQ checkpoint")
     mf.add_argument("model", choices=list(_FAMILY_MODELS))
     mf.add_argument("out")
     mf.add_argument("--seed", type=int, default=0)

@@ -14,11 +14,13 @@
 //   t = bf16(t + residual)                        where a residual is given
 //   t = isnan(t) ? t : fmaxf(t, 0)                for "relu"
 //   t = bf16(t * 0.5f * (1 + erff(t * M_SQRT1_2))) for "gelu"
+//   t = bf16(0.5f * t * (1 + tanhf(kBeta * (t + kKappa * t^3))))
+//                                                 for "gelu_tanh"
 // and writes t, bf16. Each step widens to float32 and rounds to nearest
-// even, as torch's bf16 cast, add, clamp_min and exact gelu do, in their
-// order: the output is the bits of the plain chain. The GELU is written as
-// torch's own CUDA kernel writes it, so the compiler contracts it alike;
-// nothing here is built with fast math.
+// even, as torch's bf16 cast, add, clamp_min and exact or tanh gelu do, in
+// their order: the output is the bits of the plain chain. Both GELUs are
+// written as torch's own CUDA kernel writes them, so the compiler contracts
+// them alike; nothing here is built with fast math.
 //
 // Bound: bytes. ResNet-50's stage-1 conv3 at B=256 (802,816 rows of 256,
 // bf16 product, residual and output) moves 1.233 GB, 0.368 ms at 3.35
@@ -53,7 +55,7 @@ constexpr int kBlocksPerSm = 8;
 constexpr int kVec = 8;       // elements a vector
 constexpr unsigned kMaxVectors = 1u << 30;
 
-enum Act { kNone = 0, kRelu = 1, kGelu = 2 };
+enum Act { kNone = 0, kRelu = 1, kGelu = 2, kGeluTanh = 3 };
 
 __device__ __forceinline__ uint4 ld_stream(const uint4* p) {
   uint4 v;
@@ -108,6 +110,14 @@ __device__ __forceinline__ float activate(float t) {
   } else if constexpr (ACT == kGelu) {
     constexpr float kAlpha = 0.70710678118654752440;  // M_SQRT1_2
     return t * 0.5f * (1.0f + erff(t * kAlpha));
+  } else if constexpr (ACT == kGeluTanh) {
+    // torch's constants: M_SQRT2 * M_2_SQRTPI * 0.5 in double, to float
+    constexpr float kBeta =
+        1.41421356237309504880 * 1.12837916709551257390 * 0.5;
+    constexpr float kKappa = 0.044715;
+    const float cube = t * t * t;
+    const float inner = kBeta * (t + kKappa * cube);
+    return 0.5f * t * (1.0f + tanhf(inner));
   } else {
     return t;
   }
@@ -219,6 +229,9 @@ void launch_in(const void* y, const float* bias, const void* res, void* out,
     case kGelu:
       launch_act<In, kGelu>(y, bias, res, out, nv, cv, stream);
       break;
+    case kGeluTanh:
+      launch_act<In, kGeluTanh>(y, bias, res, out, nv, cv, stream);
+      break;
     default:
       launch_act<In, kNone>(y, bias, res, out, nv, cv, stream);
   }
@@ -228,13 +241,13 @@ void launch_in(const void* y, const float* bias, const void* res, void* out,
 
 // y: n elements in rows of c (in_dtype 0: float32, 1: bf16); bias: c
 // float32 or null; res: n bf16 or null; out: n bf16. act 0: none, 1: relu,
-// 2: gelu. y, res and out 16-byte aligned, bias 16-byte aligned, c a
-// multiple of 8. Returns a CUDA error code.
+// 2: gelu (erf), 3: gelu_tanh. y, res and out 16-byte aligned, bias
+// 16-byte aligned, c a multiple of 8. Returns a CUDA error code.
 extern "C" int epilogue_fused_launch(const void* y, const void* bias,
                                      const void* res, void* out, long long n,
                                      int c, int in_dtype, int act,
                                      cudaStream_t stream) {
-  if (n <= 0 || c <= 0 || c % kVec != 0 || n % c != 0 || act < 0 || act > 2 ||
+  if (n <= 0 || c <= 0 || c % kVec != 0 || n % c != 0 || act < 0 || act > 3 ||
       in_dtype < 0 || in_dtype > 1)
     return (int)cudaErrorInvalidValue;
   const uintptr_t align = (uintptr_t)y | (uintptr_t)bias | (uintptr_t)res |

@@ -1,8 +1,18 @@
-// window_attention_fused: the window attention of a Swin block in one
-// kernel, for Hopper (sm_90a): q k^T, the scale, the relative-position bias
-// and shift mask, the softmax and the product with v, for every (window,
-// head) of a batch, reading q, k and v in place from the qkv projection's
-// output on the block's grid and writing o onto the grid.
+// window_attention_fused: the window attention of a Swin block, or of a
+// MaxViT block or grid partition, in one kernel, for Hopper (sm_90a): q k^T,
+// the scale, the relative-position bias and shift mask, the softmax and the
+// product with v, for every (window, head) of a batch, reading q, k and v in
+// place from the qkv projection's output on the block's grid and writing o
+// onto the grid.
+//
+// Two partitions of a G x G grid into windows of w x w tokens, nw = G / w
+// windows a side, each a compile-time case of the kernel:
+// - block (Swin, MaxViT's block attention): window (a, b) holds the
+//   contiguous tokens at row a w + i, column b w + j, token (i, j);
+// - grid (MaxViT's grid attention): window (a, b) holds the tokens spaced
+//   nw apart, at row i nw + a, column j nw + b.
+// Only the addressing of a window's first token, of a token within it and
+// of o differs; the block case compiles to the code it had alone.
 //
 // Replaces no Pallas kernel: the JAX package has no Swin, and the port ran
 // the attention as a chain of library calls (models/swin.py, its plain
@@ -57,7 +67,9 @@
 // blocks of a forward, 41 % of the byte bound; the chain took 187 ms.
 // Compiled for windows padded to 144 tokens (n <= 144, Swin's windows up
 // to 12 x 12: three warpgroups, one block an SM; a smaller window leaves
-// warpgroups idle). A larger window takes the plain chain.
+// warpgroups idle). A larger window takes the plain chain. The grid case
+// reads each token's 64 bytes of q, k and v from rows nw apart: the same
+// bytes in 64-byte pieces, where the block case reads runs of w tokens.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -276,6 +288,7 @@ struct Item {
   }
 };
 
+template <bool kGrid>
 __global__ void __launch_bounds__(kThreads, 1)
     window_attention_fused_kernel(const Args a) {
   extern __shared__ unsigned char smem_raw[];
@@ -289,6 +302,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n = a.n, w = a.window;
   const int nwx = a.grid / w;
   const int c_all = a.heads * kHd;  // channels of q (of k, of v, of o)
+  // grid rows (and columns) between two tokens of a window, and between
+  // the first tokens of two neighbouring windows
+  const int tstep = kGrid ? nwx : 1;
+  const int wstep = kGrid ? 1 : w;
 
   // this block's work items: (position, head, image), the image fastest,
   // items first .. first + count - 1 (the launcher keeps their number in
@@ -320,7 +337,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (i < 12 * n) {
       const int r = i / 12, part = (i >> 2) % 3, c = i & 3;
       const int ty = r / w, tx = r - ty * w;
-      src[j] = static_cast<int>(ty * a.sy + tx * a.sx) + part * c_all + 8 * c;
+      src[j] = static_cast<int>((ty * tstep) * a.sy + (tx * tstep) * a.sx) +
+               part * c_all + 8 * c;
       dst[j] = part * kTile + swizzle64(r, c);
     }
   }
@@ -328,8 +346,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // window (empty past the last); called for t = 0, 1, 2, ... in turn
   auto load = [&](int t) {
     if (t < count) {
-      const __nv_bfloat16* p = a.qkv + ld.b * a.sb + (ld.wy * w) * a.sy +
-                               (ld.wx * w) * a.sx + ld.h * kHd;
+      const __nv_bfloat16* p = a.qkv + ld.b * a.sb + (ld.wy * wstep) * a.sy +
+                               (ld.wx * wstep) * a.sx + ld.h * kHd;
       const uint32_t st = base + (t % kStages) * kStage;
 #pragma unroll
       for (int j = 0; j < kSlots; ++j)
@@ -485,8 +503,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (row < n) {
             const int ty = row / w, tx = row - ty * w;
             const long long tok =
-                (static_cast<long long>(b) * a.grid + wy * w + ty) * a.grid +
-                wx * w + tx;
+                (static_cast<long long>(b) * a.grid + wy * wstep +
+                 ty * tstep) * a.grid +
+                wx * wstep + tx * tstep;
             const long long at = tok * c_all + h * kHd + 2 * q4;
             if (a.out_bf16) {
               __nv_bfloat16* d = static_cast<__nv_bfloat16*>(a.out) + at;
@@ -513,8 +532,9 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+template <bool kGrid>
 int launch(const Args& a, cudaStream_t stream) {
-  auto* kernel = window_attention_fused_kernel;
+  auto* kernel = window_attention_fused_kernel<kGrid>;
   static int resident = 0;  // blocks the card holds at once; per process
   if (resident == 0) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -547,16 +567,17 @@ int launch(const Args& a, cudaStream_t stream) {
 // p (row-major within the image's windows) and head h dense at bias +
 // p bias_sw + h bias_sh (0 strides broadcast). out: a dense (B, G, G, C)
 // tensor of out_dtype (0 float32, 1 bf16). hd must be 32, n = window^2 at
-// most 144, and window must divide G.
+// most 144, and window must divide G. partition 0: block (contiguous
+// windows), 1: grid (windows of tokens G / window apart).
 extern "C" int window_attention_fused_launch(
     const void* qkv, long long sb, long long sy, long long sx,
     const void* bias, long long bias_sw, long long bias_sh, void* out,
     int batch, int grid, int window, int heads, int hd, float scale,
-    int out_dtype, cudaStream_t stream) {
+    int out_dtype, int partition, cudaStream_t stream) {
   if (hd != kHd || batch < 0 || heads < 1 || window < 1 || grid < window ||
       grid % window || window * window > kN ||
       (out_dtype != 0 && out_dtype != 1) || !(scale > 0) || bias_sw < 0 ||
-      bias_sh < 0)
+      bias_sh < 0 || (partition != 0 && partition != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   if (sb % 8 || sy % 8 || sx % 8 || sy < 0 || sx < 0 || sb < 0 ||
@@ -565,7 +586,8 @@ extern "C" int window_attention_fused_launch(
   // a window's copies address q, k and v from its first token in 32 bits,
   // and the work items (window, head, image) count in 31
   const long long nw = grid / window;
-  if ((window - 1) * (sy + sx) + 3LL * heads * kHd >= (1LL << 31) ||
+  const long long tstep = partition ? nw : 1;
+  if ((window - 1) * tstep * (sy + sx) + 3LL * heads * kHd >= (1LL << 31) ||
       nw * nw * heads * batch >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -584,5 +606,5 @@ extern "C" int window_attention_fused_launch(
   a.n = window * window;
   a.scale = scale;
   a.out_bf16 = out_dtype;
-  return launch(a, stream);
+  return partition ? launch<true>(a, stream) : launch<false>(a, stream);
 }

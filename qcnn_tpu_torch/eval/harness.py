@@ -252,8 +252,8 @@ class Classifier(_ClassifierBase):
 
 class FamilyClassifier(_ClassifierBase):
     """Classify surface for the nested-dict model families
-    (models/resnet.py, models/vit.py, models/swin.py) — the family
-    analogue of Classifier, fed by checkpoints whose embedded
+    (models/resnet.py, models/vit.py, models/swin.py, models/maxvit.py) —
+    the family analogue of Classifier, fed by checkpoints whose embedded
     preprocessing is the torch-style TorchPreprocessor."""
 
     def __init__(

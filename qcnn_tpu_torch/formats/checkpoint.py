@@ -256,7 +256,7 @@ def _read_arrays(path: str):
 
 
 # ---------------------------------------------------------------------------
-# Family checkpoints (ResNet, ViT, Swin): nested-dict params + dataclass spec
+# Family checkpoints (ResNet, ViT, Swin, MaxViT): nested-dict params + spec
 # ---------------------------------------------------------------------------
 
 # module:class of each family's spec, imported by name on load; the port's
@@ -265,6 +265,7 @@ _FAMILY_SPECS = {
     "resnet": "qcnn_tpu_torch.models.resnet:ResNetSpec",
     "vit": "qcnn_tpu_torch.models.vit:ViTSpec",
     "swin": "qcnn_tpu_torch.models.swin:SwinSpec",
+    "maxvit": "qcnn_tpu_torch.models.maxvit:MaxViTSpec",
 }
 
 

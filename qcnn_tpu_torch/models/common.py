@@ -23,7 +23,7 @@ from qcnn_tpu_torch._device import default_dtype, resolve_device
 from qcnn_tpu_torch.core import is_pq
 from qcnn_tpu_torch.models import prepare
 
-FAMILIES = ("resnet", "vit", "swin")
+FAMILIES = ("resnet", "vit", "swin", "maxvit")
 
 
 def fc_memory_impl(batch: int, params: dict, dtype=None) -> str:
@@ -57,10 +57,10 @@ def serving_defaults(model: str) -> dict:
     """Per-family serving config {max_batch, buckets}, copied from the JAX
     package. Its ladders come from batch sweeps on a TPU
     (qcnn_tpu/models/common.py:69-102) and were not measured on the H100;
-    ROADMAP.md A7b queues that. Swin, which the JAX package lacks, takes
-    ViT's ladder, unmeasured as the others."""
+    ROADMAP.md A7b queues that. Swin and MaxViT, which the JAX package
+    lacks, take ViT's ladder, unmeasured as the others."""
     m = model.lower()
-    if m.startswith(("vit", "swin")):
+    if m.startswith(("vit", "swin", "maxvit")):
         return {"max_batch": 32, "buckets": (1, 8, 32)}
     if "resnet101" in m:
         return {"max_batch": 128, "buckets": (1, 8, 32, 64, 128)}
@@ -84,8 +84,8 @@ def build_family_forward(family, spec, params, *, memory=False,
     default, the int8 -> bf16 activation rule, prepare, and the
     softmax-emitting partial forward (qcnn_tpu/models/common.py:131-147).
 
-    family: a registry name ('resnet', 'vit', 'swin') or the module
-      itself.
+    family: a registry name ('resnet', 'vit', 'swin', 'maxvit') or the
+      module itself.
     compute_dtype: torch.float32, torch.bfloat16 or torch.int8 (int8
       weights, bf16 activations); None means bf16 on the card and f32 on
       the CPU, as the JAX package picks bf16 on its accelerator.

@@ -85,6 +85,7 @@ from qcnn_tpu_torch.models.transformer import (
     logits,
     prepare_tree,
     proj,
+    relative_position_index,
 )
 from qcnn_tpu_torch.ops import fc as fc_ops
 from qcnn_tpu_torch.ops.cuda import window_attention_fused as wa_kernel
@@ -180,36 +181,35 @@ def _roll(x, shift: int):
     return torch.roll(x, (shift, shift), (1, 2)) if shift else x
 
 
-def window_partition(x, window: int):
+def window_partition(x, window: int, partition: str = "block"):
     """(B, G, G, C) -> (B x windows, window^2, C), windows in row-major
-    order within each image and tokens row-major within each window."""
+    order within each image and tokens row-major within each window.
+
+    partition: "block", contiguous window x window squares (Swin), or
+      "grid", MaxViT's grid partition: window (a, b) holds the tokens at
+      row i (G / window) + a, column j (G / window) + b, token (i, j)."""
     b, g, _, c = x.shape
     n = g // window
+    if partition == "grid":
+        return x.view(b, window, n, window, n, c).permute(
+            0, 2, 4, 1, 3, 5).reshape(-1, window * window, c)
     return x.view(b, n, window, n, window, c).permute(
         0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
 
 
-def window_reverse(o, window: int, grid: int):
+def window_reverse(o, window: int, grid: int, partition: str = "block"):
     """(B x windows, heads, window^2, head dim), the attention's output,
     -> (B, G, G, heads x head dim): the heads merged and the windows put
-    back on the grid in one copy."""
+    back on the grid (by ``partition``, as :func:`window_partition`) in
+    one copy."""
     bw, heads, _, hd = o.shape
     n = grid // window
     b = bw // (n * n)
-    return o.view(b, n, n, heads, window, window, hd).permute(
-        0, 1, 4, 2, 5, 3, 6).reshape(b, grid, grid, heads * hd)
-
-
-def relative_position_index(window: int) -> torch.Tensor:
-    """(N, N) int64 with N = window^2: the row of the bias table that
-    token pair (a, b) of a window reads, (dy + w - 1) (2w - 1) + dx + w - 1
-    for a's row and column minus b's."""
-    r = torch.arange(window)
-    rows = r.repeat_interleave(window)
-    cols = r.repeat(window)
-    dy = rows[:, None] - rows[None, :] + window - 1
-    dx = cols[:, None] - cols[None, :] + window - 1
-    return dy * (2 * window - 1) + dx
+    o = o.view(b, n, n, heads, window, window, hd)
+    if partition == "grid":
+        return o.permute(0, 4, 1, 5, 2, 3, 6).reshape(b, grid, grid,
+                                                      heads * hd)
+    return o.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, grid, grid, heads * hd)
 
 
 def shift_mask(grid: int, window: int, shift: int) -> torch.Tensor:
@@ -391,28 +391,32 @@ def _run_embed(x, params, spec, cast):
 
 
 def window_attention_route(device: torch.device, dtype: torch.dtype,
-                           hd: int, n: int) -> str:
-    """The form :func:`_window_attention` takes: ``"kernel"``
-    (``window_attention_fused``) for bf16 qkv on a CUDA device with a head
-    dimension the kernel is compiled for and windows of at most its
-    ``MAX_TOKENS`` tokens (n = window²), else ``"plain"`` (the window
-    partition, the materialized chain and the window reverse: the CPU,
-    float32, other head dimensions, larger windows)."""
+                           hd: int, n: int, partition: str = "block") -> str:
+    """The form :func:`_window_attention` (and MaxViT's block and grid
+    attention) takes: ``"kernel"`` (``window_attention_fused``) for bf16
+    qkv on a CUDA device with a head dimension the kernel is compiled for
+    and windows of at most its ``MAX_TOKENS`` tokens (n = window²), of
+    either ``partition`` ("block" or "grid", both compiled in), else
+    ``"plain"`` (the window partition, the materialized chain and the
+    window reverse: the CPU, float32, other head dimensions, larger
+    windows)."""
     if (device.type == "cuda" and dtype == torch.bfloat16
-            and hd in wa_kernel.HEAD_DIMS and n <= wa_kernel.MAX_TOKENS):
+            and hd in wa_kernel.HEAD_DIMS and n <= wa_kernel.MAX_TOKENS
+            and partition in wa_kernel.PARTITIONS):
         return "kernel"
     return "plain"
 
 
 def window_attention_plain(qkv, bias, *, heads: int, window: int,
-                           out_dtype=None):
+                           out_dtype=None, partition: str = "block"):
     """(B, G, G, 3C) qkv on a block's (rolled) grid and the block's bias
     (:func:`_window_bias`) -> (B, G, G, C) in ``out_dtype`` (float32 when
-    None), as a chain: the window partition, float32 logits plus the bias,
-    a float32 softmax, the probabilities in qkv's dtype, the product with
-    v, the window reverse with the heads merged. The kernel's function."""
+    None), as a chain: the window partition (by ``partition``, as
+    :func:`window_partition`), float32 logits plus the bias, a float32
+    softmax, the probabilities in qkv's dtype, the product with v, the
+    window reverse with the heads merged. The kernel's function."""
     grid = qkv.shape[1]
-    x = window_partition(qkv, window)  # (B x windows, N, 3C)
+    x = window_partition(qkv, window, partition)  # (B x windows, N, 3C)
     bw, n, c3 = x.shape
     hd = c3 // (3 * heads)
     q, k, v = x.view(bw, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
@@ -422,7 +426,7 @@ def window_attention_plain(qkv, bias, *, heads: int, window: int,
     probs = torch.softmax(att, dim=-1, dtype=torch.float32)
     del att
     o = fc_ops.matmul(probs.to(v.dtype), v, out_dtype)
-    return window_reverse(o, window, grid)
+    return window_reverse(o, window, grid, partition)
 
 
 def _window_attention(qkv, bias, geo: Block, out_dtype):

@@ -10,10 +10,10 @@ use 8-wide sub-spaces with 128 codewords; FC layers 4-wide with 32 codewords;
 a final classifier FC gets scalar sub-spaces with 16 codewords, matching
 fc8's (4096, 16, 1) codebook.
 
-``random_resnet_pq_params``, ``random_vit_pq_params`` and
-``random_swin_pq_params`` are the port's own: random codebooks and ids at
-the families' geometry, without the k-means of the families'
-``quantize_params``.
+``random_resnet_pq_params``, ``random_vit_pq_params``,
+``random_swin_pq_params`` and ``random_maxvit_pq_params`` are the port's
+own: random codebooks and ids at the families' geometry, without the
+k-means of the families' ``quantize_params``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from qcnn_tpu_torch.core import (
     pq_conv_params,
     pq_fc_params,
 )
-from qcnn_tpu_torch.models import resnet, swin
+from qcnn_tpu_torch.models import maxvit, resnet, swin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,6 +264,75 @@ def random_swin_pq_params(spec, seed: int = 0) -> dict:
                                                   bias=False)}
     params["ln_final"] = ln(spec.final_dim)
     params["head"] = gemm(spec.final_dim, spec.num_classes)
+    return params
+
+
+def random_maxvit_pq_params(spec, seed: int = 0) -> dict:
+    """Synthetic PQ params for a ``models.maxvit.MaxViTSpec`` (NumPy), in
+    the layout of ``maxvit.init_dense_params`` (every BatchNorm folded) and
+    the geometry of ``maxvit.quantize_params`` at its defaults: the 1x1
+    convs and the stem's conv2 D=4, K=128, every GEMM D=4, K=32, S =
+    ceil(Cin / 4); the stem's conv1 and the depthwise convs dense. Weights
+    and codewords N(0, 1/fan-in), biases N(0, 0.01^2); LayerNorm scales
+    1 + 0.05 N(0, 1) and shifts 0.02 N(0, 1), as
+    :func:`random_swin_pq_params` draws them; the relative-position tables
+    N(0, 1), as Swin's."""
+    rng = np.random.default_rng(seed)
+    d = 4
+
+    def bias(cout):
+        return (rng.standard_normal(cout) * 0.01).astype(np.float32)
+
+    def pq_conv(kh, cin, cout):
+        s = -(-cin // d)
+        return pq_conv_params(
+            (rng.standard_normal((s, 128, d))
+             / np.sqrt(kh * kh * cin)).astype(np.float32),
+            rng.integers(0, 128, size=(cout, kh, kh, s), dtype=np.uint8),
+            bias(cout))
+
+    def dense_conv(kh, cin, cout):
+        return {"kernel": (rng.standard_normal((kh, kh, cin, cout))
+                           / np.sqrt(kh * kh * cin)).astype(np.float32),
+                "bias": bias(cout)}
+
+    def gemm(cin, cout):
+        s = -(-cin // d)
+        return pq_fc_params(
+            (rng.standard_normal((s, 32, d)) / np.sqrt(cin)).astype(
+                np.float32),
+            rng.integers(0, 32, size=(cout, s), dtype=np.uint8), bias(cout))
+
+    def ln(dim):
+        return {"scale": (1 + 0.05 * rng.standard_normal(dim)).astype(
+                    np.float32),
+                "shift": (0.02 * rng.standard_normal(dim)).astype(np.float32)}
+
+    st = spec.stem_width
+    params: dict = {"stem": {"conv1": dense_conv(3, 3, st),
+                             "conv2": pq_conv(3, st, st)}}
+    for blk in maxvit.block_layout(spec):
+        c, m = blk.dim, blk.mid
+        mb = {"proj": pq_conv(1, blk.cin, c)} if blk.stride == 2 else {}
+        mb.update(conv1=pq_conv(1, blk.cin, m), dw=dense_conv(3, 1, m),
+                  se1=gemm(m, blk.se), se2=gemm(blk.se, m),
+                  conv3=pq_conv(1, m, c))
+        params[blk.key] = {"mbconv": mb}
+        for part in maxvit.PARTS:
+            params[blk.key][part] = {
+                "ln1": ln(c),
+                "qkv": gemm(c, 3 * c),
+                "rel_table": rng.standard_normal(
+                    (blk.heads, 2 * blk.window - 1,
+                     2 * blk.window - 1)).astype(np.float32),
+                "out": gemm(c, c),
+                "ln2": ln(c),
+                "mlp1": gemm(c, maxvit.MLP_RATIO * c),
+                "mlp2": gemm(maxvit.MLP_RATIO * c, c),
+            }
+    f = spec.dims[-1]
+    params["head"] = {"norm": ln(f), "pre": gemm(f, f),
+                      "fc": gemm(f, spec.num_classes)}
     return params
 
 

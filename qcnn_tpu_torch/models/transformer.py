@@ -1,4 +1,5 @@
-"""The parts of a pre-norm transformer that the ViT and Swin families share.
+"""The parts of a pre-norm transformer that the ViT, Swin and MaxViT
+families share.
 
 Both families keep every weight matrix as a (Cin, Cout) GEMM with the PQ
 data model of the FC layers (``ops.fc.fc_layer``), LayerNorms in float32,
@@ -13,6 +14,8 @@ in ``models/vit.py`` and ``models/swin.py``.
 - :func:`layernorm`, :func:`logits`, :func:`proj`: the forward's ops.
 - :func:`block_projections`: one block's four projections, routed once from
   the block's input and decoded together at its head.
+- :func:`relative_position_index`: the bias table's row of each token pair
+  of a window (Swin's, and MaxViT's read backwards).
 """
 
 from __future__ import annotations
@@ -93,6 +96,18 @@ def prepare_tree(params: dict, cin_map: dict, dtype, *, memory: bool,
         return _tensor(_np(p).astype(np.float32), torch.float32, device)
 
     return {name: prep(p, name) for name, p in params.items()}
+
+
+def relative_position_index(window: int) -> torch.Tensor:
+    """(N, N) int64 with N = window^2: the row of the bias table that
+    token pair (a, b) of a window reads, (dy + w - 1) (2w - 1) + dx + w - 1
+    for a's row and column minus b's."""
+    r = torch.arange(window)
+    rows = r.repeat_interleave(window)
+    cols = r.repeat(window)
+    dy = rows[:, None] - rows[None, :] + window - 1
+    dx = cols[:, None] - cols[None, :] + window - 1
+    return dy * (2 * window - 1) + dx
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,9 @@ setting: cuDNN's default would round f32 operands to TF32.
 The forwards reach a conv through :func:`conv_layer`, the one place that
 reads a layer dict's format: PQ, int8 or dense. Its ``act`` and
 ``residual`` (a ReLU, a shortcut) join the bias in the product's one
-epilogue (``ops.fc.emit``). :func:`instep_decodes` decodes a group of
+epilogue (``ops.fc.emit``). Its ``pad`` may be a (before, after) pair, as
+TensorFlow's 'same' padding gives a stride-2 conv on an even map
+(:func:`same_pad`): an uneven pair pads the input with zeros first. :func:`instep_decodes` decodes a group of
 convs and FCs in one ``pq_decode`` launch.
 
 The int8 conv (:func:`conv_dense_int8`) has no library convolution on the
@@ -83,6 +85,17 @@ _INSTEP_LAYOUTS = {
 }
 _IMPLS = ("decode", "fusedconv", "memory_fused", "fc1x1", "gemm", "memory",
           "lut", *_INSTEP_LAYOUTS)
+
+
+def same_pad(kernel: int, stride: int, size: int):
+    """TensorFlow's 'same' padding of one axis of ``size`` for a conv of
+    ``kernel`` taps and ``stride`` (ceil(size / stride) outputs): the pad
+    of both sides as an int where they agree, else (before, after), the
+    odd pixel after (a 3x3 stride-2 conv on an even map: (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    lo = total // 2
+    return lo if total - lo == lo else (lo, total - lo)
 
 
 def memory_fused_route(params: dict, x_shape, x_dtype, *, stride: int,
@@ -517,12 +530,21 @@ def conv_layer(x: torch.Tensor, p: dict, *, impl: str, stride: int,
                residual=None) -> torch.Tensor:
     """One conv layer by the format of its param dict, emitted in
     ``out_dtype`` with ``residual`` (the output's shape) and ``act``
-    ("relu" or "gelu") after the bias, in the product's one epilogue
+    ("relu", "gelu" or "gelu_tanh") after the bias, in the product's one epilogue
     (``ops.fc.emit``): a PQ dict (``codebooks``) through :func:`pq_conv`
     by ``impl`` (``decoded``: its weight from a grouped decode), an int8
     one (``kernel_q``) through :func:`conv_dense_int8` with its
     ``act_scale`` and ``out_scale``, any other through :func:`conv_dense`,
-    whatever ``impl`` says. The forwards read a conv's format here only."""
+    whatever ``impl`` says. The forwards read a conv's format here only.
+
+    pad: an int, or a (before, after) pair for both axes (:func:`same_pad`);
+    an uneven pair pads x with zeros and runs the conv unpadded."""
+    if isinstance(pad, tuple):
+        lo, hi = pad
+        if lo != hi:
+            x = F.pad(x, (0, 0, lo, hi, lo, hi))
+            lo = 0
+        pad = lo
     conv = dict(stride=stride, pad=pad, groups=groups)
     if "codebooks" in p:
         return pq_conv(x, p, impl=impl, out_dtype=out_dtype, decoded=decoded,

@@ -6,7 +6,8 @@ activation and the residual add after each product to XLA. The plain
 version (:func:`epilogue_plain`) is the chain the port has always run,
 torch's ops in their order: the product cast to the activation dtype, the
 bias (cast to that dtype) added, the residual added, then ReLU
-(``clamp_min``) or exact GELU. The kernel (``csrc/epilogue_fused.cu``)
+(``clamp_min``), exact GELU or the tanh GELU (``gelu_tanh``, MaxViT's). The
+kernel (``csrc/epilogue_fused.cu``)
 does the same arithmetic in one read of each operand and one write, and
 rounds at the same points, so on the card it gives the chain's bits.
 
@@ -20,6 +21,7 @@ CPU, int8, odd widths, a cast alone).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +29,9 @@ import torch.nn.functional as F
 from qcnn_tpu_torch.ops import misc
 from qcnn_tpu_torch.ops.cuda._build import INT, PTR, Kernel
 
-ACTIVATIONS = {"relu": misc.relu, "gelu": F.gelu}  # gelu: exact (erf)
-_ACT_CODES = {None: 0, "relu": 1, "gelu": 2}
+ACTIVATIONS = {"relu": misc.relu, "gelu": F.gelu,  # gelu: exact (erf)
+               "gelu_tanh": functools.partial(F.gelu, approximate="tanh")}
+_ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "gelu_tanh": 3}
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VECTOR = 8  # elements a vector of the kernel; a row is whole vectors
 

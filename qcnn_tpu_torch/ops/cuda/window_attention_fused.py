@@ -1,5 +1,6 @@
-"""A Swin block's window attention in one pass: the launcher of the
-``window_attention_fused`` CUDA kernel and its argument checks.
+"""A Swin block's window attention, or a MaxViT block's block or grid
+attention, in one pass: the launcher of the ``window_attention_fused`` CUDA
+kernel and its argument checks.
 
 Replaces no Pallas kernel: the JAX package has no Swin. The plain version
 is ``models.swin.window_attention_plain``, the chain the port ran since the
@@ -24,6 +25,13 @@ channels [0, C), [C, 2C) and [2C, 3C), head h at h x head dimension within
 each, and return (B, G, G, C). The bias is (heads, N, N), or (windows,
 heads, N, N) with the windows of one image in row-major order (a size-1
 heads axis broadcasts), float32, N = window².
+
+``partition`` says which tokens make a window (``PARTITIONS``): "block",
+the contiguous window x window squares of the grid (Swin; MaxViT's block
+attention), or "grid", MaxViT's grid attention, where window (a, b) holds
+the tokens at row i (G / window) + a, column j (G / window) + b for token
+(i, j): a window x window grid dilated across the whole map. Windows are in
+row-major order of (a, b) either way, tokens in row-major order of (i, j).
 ``models.swin.window_attention_route`` sends bf16 CUDA tensors here; the
 wrapper launches the kernel or raises ValueError, on a CPU tensor too.
 """
@@ -41,12 +49,13 @@ from qcnn_tpu_torch.ops.cuda._build import INT, PTR, Kernel
 HEAD_DIMS = (32,)  # the head dimensions the kernel is compiled for
 MAX_TOKENS = 144  # the largest window (window² tokens) it takes: 12 x 12
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PARTITIONS = {"block": 0, "grid": 1}  # the kernel's compile-time cases
 _LL = ctypes.c_longlong
 
 KERNEL = Kernel("window_attention_fused_launch", [  # qkv and its strides,
     PTR, _LL, _LL, _LL, PTR, _LL, _LL, PTR,  # bias, its strides, out,
     INT, INT, INT, INT, INT,  # batch, grid, window, heads, head dimension,
-    ctypes.c_float, INT, PTR])  # scale, out dtype, stream
+    ctypes.c_float, INT, INT, PTR])  # scale, out dtype, partition, stream
 
 
 def scale_of(hd: int) -> float:
@@ -57,13 +66,16 @@ def scale_of(hd: int) -> float:
 
 
 def _check(qkv: torch.Tensor, bias: torch.Tensor, heads: int, window: int,
-           out_dtype) -> tuple[int, int]:
+           out_dtype, partition: str = "block") -> tuple[int, int]:
     """(grid, head dimension) of a call the kernel takes; raises
     ValueError on any other. The device is checked last, so that every
     other check can be seen on tensors that are nowhere ('meta')."""
     if qkv.dtype != torch.bfloat16 or bias.dtype != torch.float32:
         raise ValueError(f"window_attention_fused: qkv must be bfloat16 and "
                          f"bias float32, got {qkv.dtype} and {bias.dtype}")
+    if partition not in PARTITIONS:
+        raise ValueError(f"window_attention_fused: partition must be one of "
+                         f"{sorted(PARTITIONS)}, got {partition!r}")
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"window_attention_fused: out_dtype must be float32 "
                          f"or bfloat16, got {out_dtype}")
@@ -99,13 +111,14 @@ def _check(qkv: torch.Tensor, bias: torch.Tensor, heads: int, window: int,
 
 
 def window_attention_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
-                           heads: int, window: int,
-                           out_dtype=None) -> torch.Tensor:
+                           heads: int, window: int, out_dtype=None,
+                           partition: str = "block") -> torch.Tensor:
     """softmax(q kᵀ / sqrt(hd) + bias) v over the window² tokens of each
     window and head, in place on the grid: (B, G, G, 3 C) bf16 qkv ->
-    (B, G, G, C) in ``out_dtype`` (float32 when None)."""
+    (B, G, G, C) in ``out_dtype`` (float32 when None); the windows by
+    ``partition`` ("block" or "grid")."""
     out_dtype = out_dtype or torch.float32
-    grid, hd = _check(qkv, bias, heads, window, out_dtype)
+    grid, hd = _check(qkv, bias, heads, window, out_dtype, partition)
     if (qkv.stride(-1) != 1 or qkv.data_ptr() % 16
             or any(s % 8 for s in qkv.stride()[:3])):
         qkv = qkv.contiguous()
@@ -124,5 +137,6 @@ def window_attention_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
                       device=qkv.device)
     KERNEL.launch(qkv.data_ptr(), *qkv.stride()[:3], bias.data_ptr(),
                   bias_sw, bias_sh, out.data_ptr(), b, grid, window, heads,
-                  hd, scale_of(hd), _OUT_DTYPES[out_dtype])
+                  hd, scale_of(hd), _OUT_DTYPES[out_dtype],
+                  PARTITIONS[partition])
     return out

@@ -325,9 +325,9 @@ def emit(y: torch.Tensor, out_dtype, bias=None, act=None, residual=None,
     """A product as the activation between layers, under the ``epilogue``
     span: cast to ``out_dtype`` (kept when None; int8 codes, an
     ``out_scale``'s, stay codes), ``bias`` added in that dtype, then
-    ``residual`` added, then ``act`` ("relu" or exact "gelu"). On the card
-    a bf16 emission with something to fuse is one ``epilogue_fused``
-    launch (``ops.cuda.epilogue_fused.route``; not for an int8 layer's
+    ``residual`` added, then ``act`` ("relu", exact "gelu" or "gelu_tanh").
+    On the card a bf16 emission with something to fuse is one
+    ``epilogue_fused`` launch (``ops.cuda.epilogue_fused.route``; not for an int8 layer's
     values, ``int8``), else torch's chain in that order: the same bits.
     Every product of :func:`fc_layer` and ``ops.conv.conv_layer`` ends
     here: no other code of theirs casts a product or adds its bias."""

@@ -19,9 +19,20 @@ the window partition of the block's normalized input) and
 ``.reverse`` (the head merge, the window reverse and the shift back),
 and ``qcnn.merge:s<i>`` (the 2x2 gather of a patch merging and its
 LayerNorm; its reduction is ``qcnn.fc:s<i>.reduction``), with
-``qcnn.pool:head`` for the mean over the tokens. A profiler that is
-running records each as a range of the host's timeline; a kernel belongs
-to the innermost range around its launch.
+``qcnn.pool:head`` for the mean over the tokens. The MaxViT forward names
+its blocks ``s<i>b<j>`` too: its convs are ``qcnn.conv:stem.conv1``,
+``stem.conv2`` and ``s<i>b<j>.conv1``, ``.conv3``, ``.proj`` (the
+shortcut's 1x1 conv, after ``qcnn.pool:s<i>b0.shortcut``, its 2x2 average
+pool); it adds two kinds, ``qcnn.dwconv:s<i>b<j>`` (the depthwise conv
+with its 'same' pad and epilogue) and ``qcnn.se:s<i>b<j>`` (the
+squeeze-excite: the mean, the two FCs, the gate and the scale); its
+partition blocks are ``<block>.block`` and ``<block>.grid`` in the kinds
+of a transformer block (``qcnn.layernorm:s<i>b<j>.grid.ln1``,
+``qcnn.fc:s<i>b<j>.block.qkv``, ``qcnn.attention:s<i>b<j>.grid``), and its
+head ``qcnn.pool:head``, ``qcnn.layernorm:head``, ``qcnn.fc:head.pre``
+(with the tanh) and ``qcnn.fc:head``. A profiler that is running records
+each as a range of the host's timeline; a kernel belongs to the innermost
+range around its launch.
 
 A range is torch's ``RecordFunction`` through ``_RecordFunctionFast``, at
 about 2 us a range on the host where ``torch.profiler.record_function``

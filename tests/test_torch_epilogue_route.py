@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from qcnn_tpu_torch.models import (
     common,
+    maxvit,
     network,
     prepare,
     resnet,
@@ -95,6 +96,9 @@ FORMS = {
                                _nchw_bias(y, od, b) + r, 0)),
     "bias-gelu": (dict(bias=True, act="gelu"),
                   lambda y, od, b, r: F.gelu(y.to(od) + b.to(od))),
+    "bias-gelu_tanh": (dict(bias=True, act="gelu_tanh"),
+                       lambda y, od, b, r: F.gelu(y.to(od) + b.to(od),
+                                                  approximate="tanh")),
     "bias-residual": (dict(bias=True, residual=True),
                       lambda y, od, b, r: r + (y.to(od) + b.to(od))),
     "relu": (dict(act="relu"),
@@ -199,6 +203,8 @@ ROUTES = {
     "conv3": ({}, "kernel"),
     "bias-only": (dict(kw=dict(act=None, residual=None)), "kernel"),
     "gelu": (dict(kw=dict(act="gelu", residual=None)), "kernel"),
+    "gelu_tanh": (dict(kw=dict(act="gelu_tanh", residual=None)), "kernel"),
+    "gelu_tanh-residual": (dict(kw=dict(act="gelu_tanh")), "kernel"),
     "f32-product-relu": (dict(y_dtype=F32, kw=dict(bias=None,
                                                    residual=None)),
                          "kernel"),
@@ -314,6 +320,30 @@ def test_swinl_forward_forms(monkeypatch):
                      (F32, None, False): 1}
 
 
+def test_maxvitl_forward_forms(monkeypatch):
+    """MaxViT-L in memory mode, bf16: the stem's conv1 (tanh GELU) and
+    conv2 (the bias alone); each of the 24 MBConvs' conv1 and depthwise
+    conv (tanh GELU), conv3 (the shortcut) and in each stage's first block
+    proj (the bias alone), and its two squeeze-excite FCs in float32; each
+    of the 48 partition blocks' qkv (the bias alone), out and mlp2 (the
+    residual), mlp1 (tanh GELU); the head's pre-logits (the bias alone)
+    and float32 classifier. The widths and the image are cut (64x64,
+    widths 32-128, partition 2): the forms follow the depths."""
+    spec = maxvit.MaxViTSpec("MaxViT-L-depths-64px", image_size=64,
+                             stem_width=32, dims=(32, 32, 64, 128),
+                             depths=(2, 6, 14, 2), partition=2)
+    params = synth.random_maxvit_pq_params(spec, seed=0)
+    prepared, fwd, _ = common.build_family_forward(
+        "maxvit", spec, params, memory=True, compute_dtype=BF16,
+        device="cpu")
+    x = torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    forms = _recorded_forms(lambda: fwd(prepared, x), monkeypatch)
+    assert forms == {(BF16, "gelu_tanh", False): 1 + 2 * 24 + 48,
+                     (BF16, None, False): 1 + 4 + 48 + 1,
+                     (BF16, None, True): 24 + 2 * 48,
+                     (F32, None, False): 2 * 24 + 1}
+
+
 def test_alexnet_forward_forms(monkeypatch):
     """AlexNet in memory mode, bf16, B=4: the 5 convs' bias alone (their
     ReLUs stay layers of the spec); fc6-8 bring float32 sums with the bias
@@ -383,6 +413,22 @@ CELL_EPILOGUES = {
               ((128 * 48 * 48,), 384, BF16, "bias"),
               ((128 * 24 * 24,), 768, BF16, "bias"),
               ((128 * 12 * 12,), 1536, BF16, "bias")],
+    # the stem's two convs; each stage's first-block expansion (at the
+    # input map), proj, depthwise conv (at the output map) and conv3;
+    # each stage's qkv, out and mlp2, mlp1; the pre-logits
+    "maxvitl": [((128, 192, 192), 128, BF16, "bias-gelu_tanh"),
+                ((128, 192, 192), 128, BF16, "bias"),
+                *[case for g, c in ((96, 128), (48, 256), (24, 512),
+                                    (12, 1024))
+                  for case in (((128, 2 * g, 2 * g), 4 * c, BF16,
+                                "bias-gelu_tanh"),
+                               ((128, g, g), c, BF16, "bias"),
+                               ((128, g, g), 4 * c, BF16, "bias-gelu_tanh"),
+                               ((128, g, g), c, BF16, "bias-residual"),
+                               ((128 * g * g,), 3 * c, BF16, "bias"),
+                               ((128 * g * g,), 4 * c, BF16,
+                                "bias-gelu_tanh"))],
+                ((128,), 1024, BF16, "bias")],
 }
 CARD_CASES = [(cell, *case) for cell, cases in CELL_EPILOGUES.items()
               for case in cases]
@@ -394,7 +440,8 @@ CARD_CASES = [(cell, *case) for cell, cases in CELL_EPILOGUES.items()
 def test_kernel_is_the_plain_chain_at_the_cells_shapes(card, cell, rows, c,
                                                        y_dtype, form):
     """One launch, the chain's bits. GELU may differ where the card's erff
-    and torch's differ, by one bf16 step at most; none has (printed)."""
+    (tanhf for gelu_tanh) and torch's differ, by one bf16 step at most;
+    the count is printed."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     kw, _ = FORMS[form]
@@ -410,7 +457,7 @@ def test_kernel_is_the_plain_chain_at_the_cells_shapes(card, cell, rows, c,
     differ = int((~same).sum())
     print(json.dumps({"cell": cell, "shape": [*rows, c], "form": form,
                       "differ": differ}))
-    if kw.get("act") != "gelu":
+    if kw.get("act") not in ("gelu", "gelu_tanh"):
         assert differ == 0
     else:
         step = (got.float() - want.float()).abs()[~same]
@@ -428,7 +475,8 @@ def _cell(name: str, card):
         "alexnet": ("alexnet-pq-mem", "alexnet_pq", 256),
         "resnet50": ("resnet50-pq-mem", "resnet_pq", 256),
         "vitl16": ("vitl16-384-pq-mem", "vit_pq", 128),
-        "swinl": ("swinl-384-pq-mem", "swin_pq", 128)}[name]
+        "swinl": ("swinl-384-pq-mem", "swin_pq", 128),
+        "maxvitl": ("maxvitl-384-pq-mem", "maxvit_pq", 128)}[name]
     with open(os.path.join(ROOT, "bench_cuda", "configs",
                            f"{cfg_name}.json")) as f:
         cfg = json.load(f)
@@ -443,7 +491,8 @@ def _cell(name: str, card):
 
 @pytest.mark.card
 @pytest.mark.parametrize("name,launches", [("alexnet", 5), ("resnet50", 53),
-                                           ("vitl16", 97), ("swinl", 100)])
+                                           ("vitl16", 97), ("swinl", 100),
+                                           ("maxvitl", 271)])
 def test_cell_forward_launches_the_kernel_and_keeps_the_bits(
         card, monkeypatch, name, launches):
     """The cell's forward launches ``epilogue_fused`` once an epilogue that

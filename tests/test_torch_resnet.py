@@ -229,7 +229,7 @@ def test_unported_parts_raise_naming_the_roadmap():
         "vit", vspec, synth.random_vit_pq_params(vspec, seed=0),
         memory=True, device="cpu")
     assert act == torch.float32 and tcommon.FAMILIES == ("resnet", "vit",
-                                                         "swin")
+                                                         "swin", "maxvit")
     probs = fwd(prepared, np.zeros((2, 32, 32, 3), np.float32))
     assert probs.shape == (2, 10) and torch.isfinite(probs).all()
     torch.testing.assert_close(probs.sum(1), torch.ones(2))

@@ -2,7 +2,9 @@
 the ``window_attention_fused`` kernel for bf16 qkv on a CUDA device with a
 head dimension of 32 and windows of at most 144 tokens, the plain version
 (the window partition, the materialized float32 chain and the window
-reverse) everywhere else.
+reverse) everywhere else. MaxViT's grid attention takes the same route
+with its grid partition (windows of tokens G / window apart), which the
+kernel addresses in place too.
 
 The CPU tests hold the plain version to the chain the Swin block ran
 before the kernel (partition, chain, reverse, as written out here) bit for
@@ -54,6 +56,90 @@ SMALL = swin.swin_tiny_test()
 ])
 def test_route_table(device, dtype, hd, n, want):
     assert swin.window_attention_route(device, dtype, hd, n) == want
+
+
+@pytest.mark.parametrize("device, dtype, n, partition, want", [
+    (CUDA, BF16, 144, "grid", "kernel"),
+    (CUDA, BF16, 16, "grid", "kernel"),
+    (CUDA, BF16, 144, "block", "kernel"),
+    (CUDA, BF16, 169, "grid", "plain"),
+    (CUDA, BF16, 144, "dilated", "plain"),
+    (CUDA, F32, 144, "grid", "plain"),
+    (CPU, BF16, 144, "grid", "plain"),
+])
+def test_route_table_of_the_partitions(device, dtype, n, partition, want):
+    assert swin.window_attention_route(device, dtype, 32, n,
+                                       partition) == want
+
+
+def _grid_windows(x, g):
+    """MaxViT's grid partition as published (timm's grid_partition):
+    ``x.view(B, g, H/g, g, W/g, C).permute(0, 2, 4, 1, 3, 5)``."""
+    b, h, w, c = x.shape
+    return x.view(b, g, h // g, g, w // g, c).permute(
+        0, 2, 4, 1, 3, 5).reshape(-1, g * g, c)
+
+
+def _grid_chain(qkv, bias, heads, window, out_dtype):
+    """MaxViT's grid attention as a chain, written out: the published grid
+    partition of qkv, the float32 logits of ``transformer.logits`` plus the
+    bias, the float32 softmax rounded once to v's dtype, the product with v
+    in ``out_dtype``, then each window's token (i, j) put back at row
+    i (G / window) + a, column j (G / window) + b of the grid, the heads
+    merged."""
+    b, grid = qkv.shape[:2]
+    n_side = grid // window
+    x = _grid_windows(qkv, window)
+    bw, n, c3 = x.shape
+    hd = c3 // (3 * heads)
+    q, k, v = x.view(bw, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    att = transformer.logits(q, k.transpose(-1, -2), hd, torch.float32)
+    att.view(-1, 1, heads, n, n).add_(bias)
+    probs = torch.softmax(att, dim=-1, dtype=torch.float32)
+    o = fc_ops.matmul(probs.to(v.dtype), v, out_dtype)
+    out = torch.empty(b, grid, grid, heads * hd, dtype=o.dtype)
+    o = o.transpose(1, 2).reshape(b, n_side, n_side, window, window, -1)
+    for a in range(n_side):
+        for bb in range(n_side):
+            out[:, a::n_side, bb::n_side] = o[:, a, bb]
+    return out
+
+
+@pytest.mark.parametrize("grid, window, heads", [(8, 4, 1), (16, 4, 2),
+                                                 (12, 3, 2), (4, 4, 2)])
+@pytest.mark.parametrize("dtype, out_dtype", [(BF16, BF16), (F32, F32)])
+def test_plain_grid_attention_is_the_published_partition(grid, window, heads,
+                                                         dtype, out_dtype):
+    """The plain version's grid partition, bit for bit, against the chain
+    over timm's grid_partition; where the grid is one window (4, 4) both
+    partitions are the same."""
+    gen = torch.Generator().manual_seed(grid + window)
+    qkv = torch.randn((2, grid, grid, 3 * heads * 32), generator=gen).to(
+        dtype)
+    bias = torch.randn((heads, window ** 2, window ** 2), generator=gen)
+    kw = {"heads": heads, "window": window, "out_dtype": out_dtype}
+    got = swin.window_attention_plain(qkv, bias, partition="grid", **kw)
+    assert torch.equal(got, _grid_chain(qkv, bias, heads, window,
+                                        out_dtype))
+    if grid == window:
+        assert torch.equal(got, swin.window_attention_plain(qkv, bias, **kw))
+    else:
+        block = swin.window_attention_plain(qkv, bias, **kw)
+        assert not torch.equal(got, block)
+
+
+def test_grid_partition_and_reverse_round_trip():
+    """The grid partition is timm's, and the reverse puts each token back:
+    window (a, b), token (i, j) at row i (G / w) + a, column j (G / w) +
+    b."""
+    b, g, w, heads, hd = 2, 12, 4, 2, 3
+    x = torch.randn(b, g, g, heads * hd)
+    win = swin.window_partition(x, w, "grid")
+    assert torch.equal(win, _grid_windows(x, w))
+    n = g // w
+    assert torch.equal(win[n + 2].view(w, w, -1), x[0, 1::n, 2::n])
+    o = win.view(b * n * n, w * w, heads, hd).transpose(1, 2)
+    assert torch.equal(swin.window_reverse(o, w, g, "grid"), x)
 
 
 def _bias(blk: swin.Block, form: str, seed: int = 0):
@@ -253,6 +339,9 @@ def _meta(shape, dtype=BF16, device=META):
     ((2, 24, 24, 288), (3, 3, 144, 144), {}, "bias must be"),
     ((2, 24, 24, 288), (4, 2, 144, 144), {}, "bias must be"),
     ((2, 24, 24, 288), (144, 144), {}, "bias must be"),
+    ((2, 24, 24, 288), (3, 144, 144), {"partition": "grid"}, "CUDA device"),
+    ((2, 24, 24, 288), (3, 144, 144), {"partition": "dilated"},
+     "partition must be"),
 ])
 def test_wrapper_checks_raise_value_error(qkv, bias, kw, match):
     """The wrapper's checks raise ValueError on what the kernel does not
@@ -392,6 +481,47 @@ def test_kernel_is_the_plain_version_on_the_card(card, shape, shifted,
                       "rms_vs_exact": [e_kernel, e_chain]}))
     assert err <= top / 32
     assert e_kernel <= 1.25 * e_chain
+
+
+# MaxViT-L/384's stage shapes (grid, heads; partition 12): block and grid
+# attention over the same qkv
+MAXVIT_STAGES = [(96, 4), (48, 8), (24, 16), (12, 32)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("partition", ["block", "grid"])
+@pytest.mark.parametrize("grid, heads", MAXVIT_STAGES,
+                         ids=lambda v: str(v))
+def test_kernel_is_the_plain_version_at_maxvit_shapes_on_the_card(
+        card, grid, heads, partition):
+    """The kernel in either partition against the plain version of the
+    same partition on the card, bf16 out, at a batch of 4 (2 at grid 96),
+    with the tolerance of :func:`test_kernel_is_the_plain_version_on_the_card`;
+    where the map is more than one window the grid answer is far from the
+    block answer, so the partition is not ignored."""
+    b = 2 if grid >= 96 else 4
+    geo, qkv, bias = _card_case(card, b, grid, 12, heads, False,
+                                seed=grid + 1)
+    kw = {"heads": heads, "window": 12, "out_dtype": BF16}
+    before = cuda_ops.launches()["window_attention_fused"]
+    got = wa.window_attention_fused(qkv, bias, partition=partition,
+                                    **kw).float()
+    torch.cuda.synchronize(card)
+    assert cuda_ops.launches()["window_attention_fused"] == before + 1
+    want = swin.window_attention_plain(qkv, bias, partition=partition,
+                                       **kw).float()
+    other = swin.window_attention_plain(
+        qkv, bias, partition="grid" if partition == "block" else "block",
+        **kw).float()
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    apart = (got - other).abs().max().item()
+    print(json.dumps({"shape": [b, grid, heads], "partition": partition,
+                      "max_abs_vs_chain": err, "max_abs_o": top,
+                      "vs_other_partition": apart}))
+    assert err <= top / 32
+    if grid > 12:
+        assert apart > top / 4
 
 
 @pytest.mark.card
