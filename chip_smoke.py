@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only-gather  # phases 1-2 and the two gathers
     python3 chip_smoke.py --only-lut-lrn # phases 1-2, pq_lut_gather, lrn_fused
     python3 chip_smoke.py --only-epilogue  # phases 1-2 and epilogue_fused
+    python3 chip_smoke.py --only-layernorm # phases 1-2 and layernorm_fused
     python3 chip_smoke.py --only-int8    # phases 1-2, the f32 conv check, 8
     python3 chip_smoke.py --only-io      # phases 1-2, the f32 conv check, 9
     python3 chip_smoke.py --only-vit     # phases 1-2 and 10 (ViT)
@@ -88,6 +89,11 @@ Phases, each fatal on failure (any exception exits non-zero):
    bf16 step at most, where erff differs, counted), the first shapes
    timed. Every bf16 path below launches it once an epilogue that fuses a
    bias, an activation or a residual (EPILOGUES_*), and no int8 path does.
+   layernorm_fused at every LayerNorm shape of the three transformer cells
+   and at ragged shapes against the float32 form (one bf16 step at most,
+   under 1 % of the elements apart), timed beside its byte bound, the
+   float32 form and F.layer_norm on bf16; every ViT, Swin and MaxViT path
+   below launches it once a LayerNorm (LAYERNORMS_*).
 5. end to end: full-width AlexNet-PQ, synthetic params (seed 0), bf16,
    strategy 'auto' (decode at load) and 'memory' (in-step kernels) at
    B=256 and B=1; the launch counts show that memory mode ran the kernels
@@ -407,9 +413,9 @@ Limits (the script fails past them):
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With no CUDA device it exits 1 and prints
-neither; with --only-fused, --only-gather, --only-lut-lrn, --only-int8,
---only-io, --only-vit, --only-swin, --only-maxvit, --only-serve,
---only-quantize,
+neither; with --only-fused, --only-gather, --only-lut-lrn,
+--only-epilogue, --only-layernorm, --only-int8, --only-io, --only-vit,
+--only-swin, --only-maxvit, --only-serve, --only-quantize,
 --only-profile, --only-parallel, --only-a13, --gather-times or
 --quantize-repro it stops early and prints neither.
 """
@@ -461,9 +467,17 @@ ALEXNET_MEMORY_B256 = {**LRNS, "pq_decode": 1, "pq_fc_fused": 3,
 ALEXNET_MEMORY_B1 = {**LRNS, "pq_decode": 1, "pq_lut_gather": 3,
                      **EPILOGUES_ALEXNET}
 RESNET50_MEMORY = {"pq_conv_fused": 7, "pq_decode": 17, **EPILOGUES_RESNET50}
+# layernorm_fused a forward (ops.cuda.layernorm_fused.route: every bf16
+# LayerNorm on the card, the int8 paths' too, whose activations are bf16):
+# ViT-B/16's and ViT-L/16's two a block and the final one; Swin-L's two a
+# block, the final one, the 3 patch mergings' and the patch embedding's;
+# MaxViT-L's two a partition block and the head's
+LAYERNORMS_VIT_B16 = {"layernorm_fused": 25}
+LAYERNORMS_VIT_L16 = {"layernorm_fused": 49}
 # Swin-L's bf16 blocks: one window_attention_fused each (24), decoded at
 # load (SWIN_L_DECODE) and in memory mode
-SWIN_L_DECODE = {"epilogue_fused": 100, "window_attention_fused": 24}
+SWIN_L_DECODE = {"epilogue_fused": 100, "window_attention_fused": 24,
+                 "layernorm_fused": 53}
 SWIN_L_MEMORY = {"pq_decode": 29, **SWIN_L_DECODE}
 # MaxViT-L's bf16 forward at B=128: the stem's 2 convs, an MBConv's conv1,
 # depthwise conv and conv3 (and proj in a stage's first block: 4), the 4
@@ -471,7 +485,8 @@ SWIN_L_MEMORY = {"pq_decode": 29, **SWIN_L_DECODE}
 # one window_attention_fused a partition block; in memory mode one grouped
 # decode an MBConv and a partition block, the stem's conv2 and the head's
 # (74), and stage 3's squeeze-excite FCs (4096 wide) in pq_fc_fused
-MAXVIT_L_DECODE = {"epilogue_fused": 271, "window_attention_fused": 48}
+MAXVIT_L_DECODE = {"epilogue_fused": 271, "window_attention_fused": 48,
+                   "layernorm_fused": 97}
 MAXVIT_L_MEMORY = {"pq_decode": 74, "pq_fc_fused": 4, **MAXVIT_L_DECODE}
 # peak_alloc_bytes of the memory-mode runs when every conv decoded for
 # itself (this script's run of the version before the grouped decode, on an
@@ -2390,15 +2405,17 @@ def phase_io(spec, params, rparams, dev, smi: str) -> dict:
 # activations are bf16, so each block's attention is one attention_fused
 VIT_RUNS = (
     ("A", "vit_b16", "decode", (32, 1),
-     {"attention_fused": 12, "epilogue_fused": 49}),
+     {"attention_fused": 12, "epilogue_fused": 49, **LAYERNORMS_VIT_B16}),
     ("B", "vit_b16", "memory", (32, 1),
-     {"pq_decode": 14, "attention_fused": 12, "epilogue_fused": 49}),
-    ("E", "vit_b16", "int8", (32,), {"attention_fused": 12}),
+     {"pq_decode": 14, "attention_fused": 12, "epilogue_fused": 49,
+      **LAYERNORMS_VIT_B16}),
+    ("E", "vit_b16", "int8", (32,),
+     {"attention_fused": 12, **LAYERNORMS_VIT_B16}),
     ("C", "vit_l16", "memory", (1,),
      {"pq_decode": 26, "pq_fc_fused": 48, "attention_fused": 24,
-      "epilogue_fused": 97}),
+      "epilogue_fused": 97, **LAYERNORMS_VIT_L16}),
     ("D", "vit_l16", "decode", (1,),
-     {"attention_fused": 24, "epilogue_fused": 97}),
+     {"attention_fused": 24, "epilogue_fused": 97, **LAYERNORMS_VIT_L16}),
 )
 # attention_fused's shapes (B, N, H): the ViT-L/16 cell's (its row in the
 # kernel table) and ViT-B/16's at serving_defaults' max_batch
@@ -2580,6 +2597,127 @@ def phase_epilogue(dev, flush, peaks) -> tuple[dict, dict]:
     return {"epilogue_fused": close_row(row)}, counts
 
 
+# layernorm_fused's shapes at B=128, (cell, rows, C, eps, LayerNorms of
+# that shape a forward of the cell): every LayerNorm of the three
+# transformer cells. Swin-L: the patch embedding's and stage 0's (5), each
+# merge's at 4 C, the next stage's blocks, stage 3's and the final one (5).
+# MaxViT-L: each stage's partition blocks, the head's on the pooled map.
+LAYERNORM_SHAPES = (
+    ("vitl16", 128 * 577, 1024, 1e-6, 49),
+    ("swinl", 128 * 96 * 96, 192, 1e-5, 5),
+    ("swinl", 128 * 48 * 48, 768, 1e-5, 1),
+    ("swinl", 128 * 48 * 48, 384, 1e-5, 4),
+    ("swinl", 128 * 24 * 24, 1536, 1e-5, 1),
+    ("swinl", 128 * 24 * 24, 768, 1e-5, 36),
+    ("swinl", 128 * 12 * 12, 3072, 1e-5, 1),
+    ("swinl", 128 * 12 * 12, 1536, 1e-5, 5),
+    ("maxvitl", 128 * 96 * 96, 128, 1e-5, 8),
+    ("maxvitl", 128 * 48 * 48, 256, 1e-5, 24),
+    ("maxvitl", 128 * 24 * 24, 512, 1e-5, 56),
+    ("maxvitl", 128 * 12 * 12, 1024, 1e-5, 8),
+    ("maxvitl", 128, 1024, 1e-5, 1),
+)
+# (rows, C) checked only: ragged row counts, widths of the general instance
+LAYERNORM_RAGGED = ((1031, 192), (333, 1024), (1001, 200), (17, 4096),
+                    (3, 8))
+
+
+def phase_layernorm(dev, flush, peaks) -> tuple[dict, dict]:
+    """layernorm_fused against its plain version (the float32 form: x
+    widened, F.layer_norm, the cast back; on the card) at LAYERNORM_SHAPES
+    and LAYERNORM_RAGGED: every element within one bf16 step, under 1 % of
+    them apart (the statistics are summed in other orders). A step is 2^-7
+    of the larger output or, where more, 4 float32 steps of the element's
+    terms, |scale| rstd (|x| + |mean|) + |shift| (an output the shift
+    nearly cancels carries the terms' float32 rounding, the card tests'
+    rule). Each cell
+    shape timed beside the float32 form and F.layer_norm called on bf16 x
+    with the scale and shift cast to bf16 (the library's one call, which
+    the port never makes: another precision path, a yardstick only).
+    Bound: one read of x and one write of y, 4 bytes an element, and the
+    scale and shift. Returns ({"layernorm_fused": the ViT-L/16 forward's
+    row, "layernorm_fused <cell>": each cell forward's}, the launches)."""
+    import torch.nn.functional as F
+
+    from qcnn_tpu_torch.ops import cuda as cuda_ops
+    from qcnn_tpu_torch.ops.cuda import layernorm_fused as ln
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    cuda_ops.reset_launches()
+    forward = {}
+    cases = [(*case, True) for case in LAYERNORM_SHAPES] + [
+        ("ragged", rows, c, 1e-5, 0, False) for rows, c in LAYERNORM_RAGGED]
+    for cell, rows, c, eps, per_fwd, timed in cases:
+        x = (torch.randn((rows, c), generator=gen, device=dev)
+             + 0.25).to(torch.bfloat16)
+        p = {"scale": 1 + 0.05 * torch.randn(c, generator=gen, device=dev),
+             "shift": 0.02 * torch.randn(c, generator=gen, device=dev)}
+        got = ln.layernorm_fused(x, p, eps).float()
+        want = ln.layernorm_plain(x, p, eps).float()
+        apart = got != want
+        differ = int(apart.sum())
+        err = float((got - want).abs().max())
+        worst = 0.0
+        if differ:
+            xa = x.float()[apart.any(1)]
+            mean = xa.mean(1, keepdim=True)
+            rstd = torch.rsqrt(xa.var(1, unbiased=False, keepdim=True)
+                               + eps)
+            floor = 2.0 ** -21 * (p["scale"].abs() * rstd
+                                  * (xa.abs() + mean.abs())
+                                  + p["shift"].abs())
+            ga, wa = got[apart.any(1)], want[apart.any(1)]
+            step = torch.maximum(torch.maximum(ga.abs(), wa.abs())
+                                 * 2.0 ** -7, floor)
+            worst = float(((ga - wa).abs() / step).max())
+            del xa, ga, wa, step, floor
+        label = f"({rows}, {c}) eps={eps} {cell}"
+        log(f"check layernorm_fused {label}: elements apart from the "
+            f"float32 form={differ} of {got.numel()} (largest in bf16 steps "
+            f"{worst:.3f}) max_abs_err={err:.3e}")
+        if (worst > 1.0 or differ >= 0.01 * got.numel()
+                or not torch.isfinite(got).all()):
+            raise AssertionError(f"layernorm_fused {label}: {differ} "
+                                 f"elements apart, up to {worst} steps")
+        del got, want, apart
+        if timed:
+            ms = time_ms(lambda: ln.layernorm_fused(x, p, eps), flush)
+            plain_ms = time_ms(lambda: ln.layernorm_plain(x, p, eps), flush)
+            g16, b16 = (p[k].to(torch.bfloat16) for k in ("scale", "shift"))
+            lib = time_ms(lambda: F.layer_norm(x, (c,), g16, b16, eps),
+                          flush)
+            nbytes = rows * c * 4 + c * 8
+            b_ms, by = bound(nbytes, 0.0, peaks["bf16"], peaks)
+            log(f"time layernorm_fused {label} x{per_fwd} a forward "
+                f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                f"library_ms={lib:.5f} bound_ms={b_ms:.5f} bound_by={by} "
+                f"(bytes {nbytes}) share={b_ms / ms:.3f} "
+                f"GB/s={nbytes / ms / 1e6:.1f}")
+            row = forward.setdefault(cell, new_row())
+            add_timing(row, per_fwd, ms, plain_ms, lib, b_ms, nbytes, 0.0,
+                       peaks["bf16"], peaks)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        del x, p
+    rows_out = {}
+    for cell, row in forward.items():
+        n = sum(case[4] for case in LAYERNORM_SHAPES if case[0] == cell)
+        row = close_row(row)
+        log(f"time layernorm_fused a {cell} forward's {n} launches "
+            f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+            f"library_ms={row['library_ms']:.5f} "
+            f"bound_ms={row['bound_ms']:.5f} bound_by={row['bound_by']} "
+            f"share={row['bound_ms'] / row['ms']:.3f}")
+        rows_out[f"layernorm_fused {cell}"] = row
+    rows_out["layernorm_fused"] = rows_out["layernorm_fused vitl16"]
+    counts = cuda_ops.launches()
+    if counts["layernorm_fused"] < len(cases):
+        raise AssertionError(f"layernorm_fused launched "
+                             f"{counts['layernorm_fused']} times for "
+                             f"{len(cases)} shapes")
+    torch.cuda.empty_cache()
+    return rows_out, counts
+
+
 def phase_vit(dev, gpu_name, vparams) -> dict:
     """Phase 10: full-width ViT-B/16 and ViT-L/16 (224x224, 1000 classes),
     synthetic PQ params (seed 0), through build_family_forward: runs A-E
@@ -2671,8 +2809,8 @@ def phase_vit(dev, gpu_name, vparams) -> dict:
         label = f"vit_b16 family classify_batch memory B={IO_FAMILY_BMPS}"
         counts["io vit_b16 family"] = io_drive(
             f"{label} (run F)", fam, lambda: fam.classify_batch(paths), 3,
-            {"pq_decode": 14, "attention_fused": 12, "epilogue_fused": 49},
-            IO_FAMILY_BMPS)
+            {"pq_decode": 14, "attention_fused": 12, "epilogue_fused": 49,
+             **LAYERNORMS_VIT_B16}, IO_FAMILY_BMPS)
         x_in = fam.pre.load_batch(paths)
         profile_steps(lambda: fam._probs(x_in), 3, f"{label} forward (run F)")
         got = torch.from_numpy(fam._probs(x_in))
@@ -4331,7 +4469,7 @@ PARALLEL_CASE_KERNELS = {
                               "epilogue_fused"),
     "resnet50 memory": ("pq_conv_fused", "pq_decode", "epilogue_fused"),
     "vit_b16 memory pipeline": ("pq_decode", "attention_fused",
-                                "epilogue_fused"),
+                                "epilogue_fused", "layernorm_fused"),
 }
 
 
@@ -5004,6 +5142,9 @@ def main() -> int:
     only.add_argument("--only-epilogue", action="store_true",
                       help="stop after the build and epilogue_fused at the "
                            "benchmark cells' shapes")
+    only.add_argument("--only-layernorm", action="store_true",
+                      help="stop after the build and layernorm_fused at the "
+                           "transformer cells' shapes")
     only.add_argument("--only-int8", action="store_true",
                       help="stop after the build, the f32 conv check and "
                            "phase 8 (int8)")
@@ -5091,6 +5232,11 @@ def main() -> int:
     if args.only_epilogue:
         rows, counts = phase_epilogue(dev, flush, peaks)
         log(json.dumps({"partial": "epilogue_fused only", "rows": rows,
+                        "launches": counts}))
+        return 0
+    if args.only_layernorm:
+        rows, counts = phase_layernorm(dev, flush, peaks)
+        log(json.dumps({"partial": "layernorm_fused only", "rows": rows,
                         "launches": counts}))
         return 0
     if args.only_serve:
@@ -5197,6 +5343,8 @@ def main() -> int:
     phase_maxvit_kernels(dev, flush, peaks)
     epilogue_rows, epilogue_counts = phase_epilogue(dev, flush, peaks)
     rows |= epilogue_rows
+    layernorm_rows, layernorm_counts = phase_layernorm(dev, flush, peaks)
+    rows |= layernorm_rows
     del flush
 
     # phases 5-7: the paths, end to end
@@ -5230,6 +5378,7 @@ def main() -> int:
     counts |= phase_a13(spec, params, rparams, dev, gpu_name, smi)
     counts["lrn_fused entry point"] = lrn_counts
     counts["epilogue_fused entry point"] = epilogue_counts
+    counts["layernorm_fused entry point"] = layernorm_counts
     counts["general entry points"] = general_counts
     owners_of = {}
     for label, _, owned in PROFILE_RUNS:
@@ -5293,6 +5442,12 @@ def main() -> int:
                            "io resnet50 family", "io vit_b16 family",
                            "serve alexnet memory", "serve resnet50 memory",
                            "a13 reference layout"),
+        "layernorm_fused": ("layernorm_fused entry point", "vit_b16 decode",
+                            "vit_b16 memory", "vit_b16 int8",
+                            "vit_l16 memory", "vit_l16 decode",
+                            "io vit_b16 family", "swin_l384 memory",
+                            "swin_l384 decode", "maxvit_l384 memory",
+                            "maxvit_l384 decode"),
         "pq_fc_fused_general": ("general entry points",),
         "pq_conv_fused_general": ("general entry points",),
         "pq_lut_gather_general": ("general entry points",),
@@ -5330,6 +5485,8 @@ def main() -> int:
             "qcnn_tpu_torch/csrc/window_attention_fused.cu",
             "none: the JAX package has no Swin; the port's chain, "
             "qcnn_tpu_torch/models/swin.py _window_attention"),
+        "layernorm_fused": ("qcnn_tpu_torch/csrc/layernorm_fused.cu",
+                            "none: XLA's LayerNorm"),
         "pq_fc_fused_general": (
             "qcnn_tpu_torch/csrc/pq_fc_fused_general.cu",
             "qcnn_tpu/ops/pallas/pq_fc_fused.py:125"),

@@ -2,12 +2,12 @@
 families share.
 
 Both families keep every weight matrix as a (Cin, Cout) GEMM with the PQ
-data model of the FC layers (``ops.fc.fc_layer``), LayerNorms in float32,
-and the same block skeleton: LayerNorm, attention, the out projection with
-the residual add in its epilogue, LayerNorm, the MLP with the exact GELU in
-mlp1's epilogue and the residual add in mlp2's. What differs (the class
-token and position embedding, the windows, shift, bias and merging) stays
-in ``models/vit.py`` and ``models/swin.py``.
+data model of the FC layers (``ops.fc.fc_layer``), LayerNorms with float32
+statistics, and the same block skeleton: LayerNorm, attention, the out
+projection with the residual add in its epilogue, LayerNorm, the MLP with
+the exact GELU in mlp1's epilogue and the residual add in mlp2's. What
+differs (the class token and position embedding, the windows, shift, bias
+and merging) stays in ``models/vit.py`` and ``models/swin.py``.
 
 - :func:`gemm_params`, :func:`ln_params`: dense float32 init (NumPy).
 - :func:`prepare_tree`: a family's nested params to their served form.
@@ -24,7 +24,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from qcnn_tpu_torch._device import resolve_device
 from qcnn_tpu_torch.core import is_pq
@@ -39,6 +38,7 @@ from qcnn_tpu_torch.models.prepare import (
 )
 from qcnn_tpu_torch.ops import fc as fc_ops
 from qcnn_tpu_torch.ops.conv import instep_decodes
+from qcnn_tpu_torch.ops.cuda import layernorm_fused as ln_ops
 from qcnn_tpu_torch.quantizer.opq import inverse_permutation
 from qcnn_tpu_torch.utils.spans import span
 
@@ -115,10 +115,13 @@ def relative_position_index(window: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def layernorm(x, p, eps: float):
-    """(x - mean) / sqrt(var + eps) * scale + shift over the last axis, in
-    float32 (one ``F.layer_norm`` pass), cast back to x's dtype."""
-    return F.layer_norm(x.float(), (x.shape[-1],), p["scale"], p["shift"],
-                        eps).to(x.dtype)
+    """(x - mean) / sqrt(var + eps) * scale + shift over the last axis with
+    float32 statistics: one ``layernorm_fused`` launch where its route
+    takes x (bf16 on the card), else the float32 form (``F.layer_norm`` on
+    x widened to float32, cast back to x's dtype)."""
+    if ln_ops.route(x, p) == "kernel":
+        return ln_ops.layernorm_fused(x, p, eps)
+    return ln_ops.layernorm_plain(x, p, eps)
 
 
 def logits(q, k_t, hd: int, logits_dtype):

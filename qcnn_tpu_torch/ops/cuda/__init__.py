@@ -4,6 +4,7 @@ each with its plain PyTorch version and a count of launches."""
 from qcnn_tpu_torch.ops.cuda import (
     attention_fused,
     epilogue_fused,
+    layernorm_fused,
     lrn_fused,
     pq_conv_fused,
     pq_decode,
@@ -23,6 +24,7 @@ KERNELS = {
     "attention_fused": attention_fused.KERNEL,
     "epilogue_fused": epilogue_fused.KERNEL,
     "window_attention_fused": window_attention_fused.KERNEL,
+    "layernorm_fused": layernorm_fused.KERNEL,
     # the general kernels, for the shapes that the two wgmma kernels, the
     # staged gather and the register-window LRN do not take
     "pq_fc_fused_general": pq_fc_fused.GENERAL,

@@ -26,6 +26,7 @@ from qcnn_tpu_torch.ops.cuda import (
     attention_fused,
     epilogue_fused,
     launches,
+    layernorm_fused,
     lrn_fused,
     pq_conv_fused,
     pq_decode,
@@ -235,11 +236,14 @@ def test_plain_versions_do_not_count_launches(rng):
                                     scale=0.125)
     epilogue_fused.epilogue(T(x).to(torch.bfloat16), torch.bfloat16,
                             bias=torch.zeros(32), act="gelu")
+    layernorm_fused.layernorm_plain(T(x).to(torch.bfloat16),
+                                    {"scale": torch.ones(32),
+                                     "shift": torch.zeros(32)}, 1e-5)
     assert launches() == before
     assert set(KERNELS) == {"pq_decode", "pq_lut_gather", "pq_fc_fused",
                             "lrn_fused", "pq_conv_fused", "pq_fc",
                             "attention_fused", "epilogue_fused",
-                            "window_attention_fused",
+                            "window_attention_fused", "layernorm_fused",
                             "pq_fc_fused_general", "pq_conv_fused_general",
                             "pq_lut_gather_general", "lrn_fused_general"}
 

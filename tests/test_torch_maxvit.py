@@ -611,7 +611,9 @@ def test_cell_forward_launches_on_the_card(card):
     """74 ``pq_decode`` launches a forward (the stem's conv2, one grouped
     decode an MBConv and a partition block, the head's), 4
     ``pq_fc_fused`` (stage 3's squeeze-excite), 271 ``epilogue_fused``,
-    48 ``window_attention_fused`` (24 block, 24 grid) and nothing else."""
+    48 ``window_attention_fused`` (24 block, 24 grid), 97
+    ``layernorm_fused`` (two a partition block, the head's) and nothing
+    else."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     fwd, x = _cell_forward(card)
@@ -624,7 +626,8 @@ def test_cell_forward_launches_on_the_card(card):
     got = {k: after[k] - before.get(k, 0) for k in after
            if after[k] != before.get(k, 0)}
     assert got == {"pq_decode": 74, "pq_fc_fused": 4,
-                   "epilogue_fused": 271, "window_attention_fused": 48}, got
+                   "epilogue_fused": 271, "window_attention_fused": 48,
+                   "layernorm_fused": 97}, got
     assert probs.shape == (CELL_BATCH, 1000) and torch.isfinite(probs).all()
 
 
@@ -656,5 +659,6 @@ def test_every_kernel_of_a_traced_step_lies_in_a_span(card):
     assert {"attention", "conv", "dwconv", "se", "layernorm", "fc",
             "epilogue", "decode", "pool", "softmax"} <= set(got["kinds"])
     assert got["kinds"]["attention"]["kernels"] == 48
+    assert got["kinds"]["layernorm"]["kernels"] == 97
     assert got["kinds"]["dwconv"]["kernels"] >= 24
     assert got["kinds"]["se"]["kernels"] >= 24

@@ -519,8 +519,10 @@ def test_cell_forward_launches_on_the_card(card):
     patch embedding's, the three reductions', the head's), one
     ``epilogue_fused`` for each of the 96 projections of the blocks, the
     patch embedding and the three reductions, one
-    ``window_attention_fused`` a block (24), and no ViT attention or
-    fused decode-GEMM kernel."""
+    ``window_attention_fused`` a block (24), one ``layernorm_fused`` a
+    LayerNorm (53: two a block, the final one, the three merges' and the
+    patch embedding's), and no ViT attention or fused decode-GEMM
+    kernel."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     fwd, x = _cell_forward(card)
@@ -533,7 +535,7 @@ def test_cell_forward_launches_on_the_card(card):
     got = {k: after[k] - before.get(k, 0) for k in after
            if after[k] != before.get(k, 0)}
     assert got == {"pq_decode": 29, "epilogue_fused": 100,
-                   "window_attention_fused": 24}, got
+                   "window_attention_fused": 24, "layernorm_fused": 53}, got
     assert probs.shape == (CELL_BATCH, 1000) and torch.isfinite(probs).all()
 
 
@@ -570,3 +572,5 @@ def test_every_kernel_of_a_traced_step_lies_in_a_span(card):
     assert got["kinds"]["merge"]["kernels"] >= 3
     assert got["kinds"]["window"]["kernels"] == 2 * 2 * 11
     assert got["kinds"]["attention"]["kernels"] == 24 + 11
+    # one layernorm_fused launch a block's LayerNorm and the final one
+    assert got["kinds"]["layernorm"]["kernels"] == 49

@@ -284,7 +284,8 @@ def test_cell_forward_launches_on_the_card(card):
     """26 ``pq_decode`` launches a forward (one grouped decode a block, the
     patch embedding's, the head's), one ``attention_fused`` a block, one
     ``epilogue_fused`` for each of the 96 projections of the blocks and for
-    the patch embedding, and no fused decode-GEMM."""
+    the patch embedding, one ``layernorm_fused`` a LayerNorm (49), and no
+    fused decode-GEMM."""
     from qcnn_tpu_torch.ops import cuda as cuda_ops
 
     fwd, x = _cell_forward(card)
@@ -297,7 +298,7 @@ def test_cell_forward_launches_on_the_card(card):
     got = {k: after[k] - before.get(k, 0) for k in after
            if after[k] != before.get(k, 0)}
     assert got == {"pq_decode": 26, "attention_fused": 24,
-                   "epilogue_fused": 97}, got
+                   "epilogue_fused": 97, "layernorm_fused": 49}, got
     assert probs.shape == (128, 1000) and torch.isfinite(probs).all()
 
 
@@ -329,3 +330,5 @@ def test_every_kernel_of_a_traced_step_lies_in_a_span(card):
     assert got["kinds"]["decode"]["kernels"] == 24
     # one attention_fused launch a block, and no other kernel there
     assert got["kinds"]["attention"]["kernels"] == 24
+    # one layernorm_fused launch a LayerNorm, and no other kernel there
+    assert got["kinds"]["layernorm"]["kernels"] == 49
