@@ -20,9 +20,9 @@ queued before it began (the host was ahead, as under "Command Buffer
 Full") is the device's own. Each host wait is put down to the span that
 encloses the late launch.
 
-:func:`kind_share` and :func:`host_wait_share` read the reduction where a
-traced slice's summary holds it under ``"spans"``; ``trace.summarize`` does
-not store it yet, so no per-layer metric of ``BENCHMARK.json`` reads them.
+:func:`kind_share`, :func:`host_wait_share` and :func:`slowdown` read the
+reduction that ``trace.summarize`` keeps under ``"spans"``, for the
+per-layer metrics in ``metrics/``.
 """
 
 from __future__ import annotations
@@ -170,11 +170,14 @@ def _spans(ctx):
 
 def kind_share(ctx, kinds) -> float | None:
     """100 x device seconds under spans of ``kinds`` / the slice's busy
-    seconds."""
+    seconds; None where no kernel ran under them."""
     sp = _spans(ctx)
     if sp is None:
         return None
-    seconds = sum(sp["kinds"].get(k, {}).get("seconds", 0.0) for k in kinds)
+    got = [sp["kinds"][k] for k in kinds if k in sp["kinds"]]
+    if not got:  # a kind is in the reduction once a kernel ran under it
+        return None
+    seconds = sum(g["seconds"] for g in got)
     return 100.0 * seconds / ctx["trace"]["busy_s"]
 
 
@@ -184,3 +187,17 @@ def host_wait_share(ctx) -> float | None:
     if sp is None:
         return None
     return 100.0 * sp["host_wait_s"] / ctx["trace"]["window_s"]
+
+
+def slowdown(ctx) -> float | None:
+    """100 x (1 - the slice's images/s / the untraced window's): what the
+    profiler costs the steps it traces. The slice's rate is its
+    ``qcnn.forward`` spans x the batch / the slice (it starts and ends with
+    the device drained, so those are the steps dispatched in it); the
+    window's is ``ctx["images_per_s"]``, the steps outside the slice over
+    the time outside it."""
+    sp = _spans(ctx)
+    if sp is None or not ctx.get("images_per_s"):
+        return None
+    rate = sp["forwards"] * ctx["batch"] / ctx["trace"]["window_s"]
+    return 100.0 * (1.0 - rate / ctx["images_per_s"])

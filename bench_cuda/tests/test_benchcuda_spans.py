@@ -1,6 +1,7 @@
 """The span reduction of a traced slice (``spans.py``) on synthetic kineto
-event lists, the two shares it gives (``kind_share``, ``host_wait_share``),
-and ``trace.summarize`` with the program's spans in the slice."""
+event lists, what it gives (``kind_share``, ``host_wait_share``,
+``slowdown``) and the per-layer metrics that read it, and
+``trace.summarize`` with the program's spans in the slice."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import os
 import pytest
 from torch.autograd import DeviceType
 
-from bench_cuda import spans, trace
+from bench_cuda import harness, spans, trace
 from conftest import ROOT
 
 US = 1000  # ns
@@ -142,6 +143,41 @@ def test_host_spans_leave_the_device_reductions_unchanged():
         "no host operation traced": pytest.approx(20e-6)}
 
 
+def test_summary_keeps_the_span_reduction_beside_the_device_keys():
+    """``summarize`` stores ``spans.reduce`` of the slice's events under
+    "spans", and reads every other key as it did before it kept them."""
+    table = trace.kernel_table(os.path.join(ROOT, "bench_cuda"))
+    events = [e for e in step() if not (e.device_type() == DeviceType.CUDA
+                                        and e.is_user_annotation())]
+    got = trace.summarize(FakeSlice(events), table,
+                          {"pq_decode": 1, "pq_fc_fused": 1})
+    assert got.pop("spans") == spans.reduce(events)
+    kernels = {name: {"launches": 0, "seconds": 0.0} for name in table}
+    kernels["pq_decode"] = {"launches": 1, "seconds": pytest.approx(3e-6)}
+    kernels["pq_fc_fused"] = {"launches": 1,
+                              "seconds": pytest.approx(12e-6)}
+    assert got == {
+        "busy_s": pytest.approx(49e-6), "window_s": 1e-3,
+        "kernels": kernels,
+        "device_ops": [
+            ["at::native::elementwise_kernel<128, lrn>", pytest.approx(2e-5)],
+            ["pq::decode_gemm_kernel<128, 4, false>", pytest.approx(1e-5)],
+            ["Memcpy DtoH ", pytest.approx(5e-6)],
+            ["at::native::vectorized_elementwise_kernel<4, add>",
+             pytest.approx(4e-6)],
+            ["{anonymous}::pq_decode_kernel", pytest.approx(3e-6)],
+            ["at::native::vectorized_elementwise_kernel<8, clamp>",
+             pytest.approx(3e-6)],
+            ["at::native::vectorized_elementwise_kernel<8>",
+             pytest.approx(2e-6)],
+            ["pq::split_reduce_kernel", pytest.approx(2e-6)]],
+        "idle_gaps": [["qcnn.lrn:2", pytest.approx(2.4e-5)],
+                      ["no host operation traced", pytest.approx(2e-5)],
+                      ["aten::add", pytest.approx(5e-6)],
+                      ["qcnn.forward", pytest.approx(2e-6)]],
+        "launch_check": {"pq_decode": [1, 1], "pq_fc_fused": [1, 1]}}
+
+
 def test_device_copies_of_ranges_are_not_kernels():
     """A ``gpu_user_annotation`` event (a user-scope range mirrored onto the
     device's timeline) is no device work of the reduction."""
@@ -200,32 +236,82 @@ def test_spans_of_another_thread_do_not_own_a_launch():
     assert got["outside"]["kernels"] == 7
 
 
+def renamed(events, names: dict):
+    """The events with the host spans of ``names`` renamed."""
+    return [cpu(names[e.name()], e.start_ns() // US, e.duration_ns() // US,
+                e.correlation_id(), e.start_thread_id())
+            if e.name() in names else e for e in events]
+
+
+# the step with its conv and LRN spans as a transformer's or MaxViT's
+ATTENTION = {"qcnn.conv:3": "qcnn.attention:blk3",
+             "qcnn.lrn:2": "qcnn.window:s0b1.partition"}
+DWCONV_SE = {"qcnn.conv:3": "qcnn.dwconv:s0b0", "qcnn.lrn:2": "qcnn.se:s0b0"}
+
+
 def _ctx(events, busy_s=49e-6, window_s=200e-6):
     tr = {"busy_s": busy_s, "window_s": window_s,
           "spans": spans.reduce(events)}
-    return {"kind": "offline", "trace": tr}
+    # the untraced window's rate: 1 forward of 4 images in 400 us
+    return {"kind": "offline", "batch": 4, "images_per_s": 1e4, "trace": tr}
 
 
-SHARES = {"lrn": lambda ctx: spans.kind_share(ctx, ("lrn",)),
-          "pointwise": lambda ctx: spans.kind_share(
-              ctx, ("epilogue", "relu", "residual")),
-          "host_wait": spans.host_wait_share}
+def reader(metric: str):
+    return harness.load_module(
+        os.path.join(ROOT, "bench_cuda", "metrics", metric + ".py"),
+        "t_metric_" + metric.replace(".", "_")).read
+
+
+# {case: (read, the spans it reads, its reading on them)}
+SHARES = {
+    "lrn": (lambda ctx: spans.kind_share(ctx, ("lrn",)), {},
+            100 * 20 / 49),
+    "pointwise": (lambda ctx: spans.kind_share(
+        ctx, ("epilogue", "relu", "residual")), {}, 100 * 7 / 49),
+    "host_wait": (spans.host_wait_share, {}, 100 * 44 / 200),
+    "pointwise_share.offline": (reader("pointwise_share.offline"), {},
+                                100 * 7 / 49),
+    "attention_share.offline": (reader("attention_share.offline"),
+                                ATTENTION, 100 * 30 / 49),
+    "dwconv_se_share.offline": (reader("dwconv_se_share.offline"),
+                                DWCONV_SE, 100 * 30 / 49),
+    "host_wait_share.offline": (reader("host_wait_share.offline"), {},
+                                100 * 44 / 200),
+    # the slice: 1 forward of 4 images in 200 us, twice the window's rate
+    "trace_slowdown.offline": (reader("trace_slowdown.offline"), {},
+                               100 * (1 - 2e4 / 1e4)),
+}
 
 
 @pytest.mark.parametrize("share", sorted(SHARES))
 def test_shares_read_none_on_a_slice_without_spans(share):
-    read = SHARES[share]
-    bare = [e for e in step() if not e.name().startswith(spans.PREFIX)]
+    read, names, _ = SHARES[share]
+    events = renamed(step(), names)
+    bare = [e for e in events if not e.name().startswith(spans.PREFIX)]
     assert read(_ctx(bare)) is None
     assert read({"kind": "offline", "trace": {
         "busy_s": 1.0, "window_s": 1.0}}) is None  # no reduction in it
     assert read({"kind": "offline"}) is None
-    assert read(dict(_ctx(step()), kind="served")) is None
-    assert read(_ctx(step())) is not None
+    assert read(dict(_ctx(events), kind="served")) is None
+    assert read(_ctx(events)) is not None
 
 
 def test_shares_read_their_kinds():
+    for share, (read, names, want) in SHARES.items():
+        got = read(_ctx(renamed(step(), names)))
+        assert got == pytest.approx(want), share
+
+
+def test_a_share_of_kinds_that_ran_nothing_reads_none():
+    """A slice whose spans hold no kernel of the kinds asked for (the
+    attention share on AlexNet's step) has nothing to read."""
     ctx = _ctx(step())
-    assert SHARES["lrn"](ctx) == pytest.approx(100 * 20 / 49)
-    assert SHARES["pointwise"](ctx) == pytest.approx(100 * 7 / 49)
-    assert SHARES["host_wait"](ctx) == pytest.approx(100 * 44 / 200)
+    assert spans.kind_share(ctx, ("attention", "window")) is None
+    assert reader("dwconv_se_share.offline")(ctx) is None
+
+
+def test_trace_slowdown_is_zero_where_the_slice_keeps_the_window_s_rate():
+    read = reader("trace_slowdown.offline")
+    assert read(dict(_ctx(step()), images_per_s=2e4)) == pytest.approx(0.0)
+    # a slice of half the window's rate
+    assert read(_ctx(step(), window_s=800e-6)) == pytest.approx(50.0)

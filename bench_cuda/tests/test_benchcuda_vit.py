@@ -130,6 +130,11 @@ def test_cell_limits_hold_the_controls_at_a_small_size(tmp_path, entry):
 
 
 # --- faults in one block ----------------------------------------------------
+#
+# A fault acts on whichever route the block's attention takes: the kernel's
+# entry (``attention_fused.attention_fused``, the card's bf16 route) and the
+# plain chain's logits (``vit._logits``, the CPU's), and notes in ``seen``
+# the route it broke.
 
 @contextlib.contextmanager
 def swapped(module, name, fn):
@@ -141,46 +146,74 @@ def swapped(module, name, fn):
         setattr(module, name, saved)
 
 
-def unscaled(vit, blk):
-    """The attention logits without the 1/sqrt(head dim) scale."""
-    logits = vit._logits
-    return swapped(vit, "_logits",
-                   lambda q, k_t, hd, dt: logits(q, k_t, 1, dt))
+@contextlib.contextmanager
+def attention_fault(vit, seen, kernel_fault, logits_fault):
+    kernel, logits = vit.attn_kernel.attention_fused, vit._logits
+
+    def broken_kernel(q, k, v, *, scale, out_dtype):
+        seen.append("kernel")
+        return kernel_fault(kernel, q, k, v, scale, out_dtype)
+
+    def broken_logits(q, k_t, hd, dt):
+        seen.append("plain")
+        return logits_fault(logits, q, k_t, hd, dt)
+
+    with swapped(vit.attn_kernel, "attention_fused", broken_kernel), \
+            swapped(vit, "_logits", broken_logits):
+        yield
 
 
-def uniform(vit, blk):
-    """Uniform attention: the softmax of zero logits."""
-    logits = vit._logits
-    return swapped(vit, "_logits",
-                   lambda q, k_t, hd, dt: torch.zeros_like(
-                       logits(q, k_t, hd, dt)))
+def unscaled(vit, blk, seen):
+    """The attention logits without the 1/sqrt(head dim) scale: scale 1."""
+    return attention_fault(
+        vit, seen,
+        lambda kernel, q, k, v, scale, od: kernel(q, k, v, scale=1.0,
+                                                  out_dtype=od),
+        lambda logits, q, k_t, hd, dt: logits(q, k_t, 1, dt))
 
 
-def mlp_dropped(vit, blk):
-    """The block's MLP adds nothing: mlp2's output is zero."""
+def uniform(vit, blk, seen):
+    """Uniform attention: q zeroed before the kernel, so every logit is 0;
+    the softmax of zero logits in the chain."""
+    return attention_fault(
+        vit, seen,
+        lambda kernel, q, k, v, scale, od: kernel(
+            torch.zeros_like(q), k, v, scale=scale, out_dtype=od),
+        lambda logits, q, k_t, hd, dt: torch.zeros_like(
+            logits(q, k_t, hd, dt)))
+
+
+def mlp_dropped(vit, blk, seen):
+    """The block's MLP adds only its bias: mlp2's product is zero before
+    its epilogue, which still adds the bias and the residual."""
     proj = vit._proj
 
     def broken(v, p, **kw):
-        y = proj(v, p, **kw)
-        return torch.zeros_like(y) if p is blk["mlp2"] else y
+        if p is blk["mlp2"]:
+            seen.append("mlp2")
+            v = torch.zeros_like(v)
+        return proj(v, p, **kw)
     return swapped(vit, "_proj", broken)
 
 
 FAULTS = [unscaled, uniform, mlp_dropped]
 
 
-def break_block(monkeypatch, fault, target: str) -> None:
-    """Run block ``target`` of every forward with ``fault`` in place."""
+def break_block(monkeypatch, fault, target: str) -> list:
+    """Run block ``target`` of every forward with ``fault`` in place; the
+    list returned gathers what the fault broke, one entry a call."""
     from qcnn_tpu_torch.models import vit
 
     run_block = vit._run_block
+    seen = []
 
     def broken(x, blk, spec, cast, dt, key="blk"):
         if key != target:
             return run_block(x, blk, spec, cast, dt, key)
-        with fault(vit, blk):
+        with fault(vit, blk, seen):
             return run_block(x, blk, spec, cast, dt, key)
     monkeypatch.setattr(vit, "_run_block", broken)
+    return seen
 
 
 @pytest.fixture
@@ -208,8 +241,9 @@ def test_sound_run_is_correct(vit_root):
 @pytest.mark.parametrize("fault", FAULTS, ids=lambda f: f.__name__)
 def test_fault_in_one_block_is_not_correct(vit_root, monkeypatch, fault,
                                            target):
-    break_block(monkeypatch, fault, target)
+    seen = break_block(monkeypatch, fault, target)
     r = run_tiny(vit_root)
+    assert set(seen) == ({"mlp2"} if fault is mlp_dropped else {"plain"})
     assert not r["correct"], r["checks"]
 
 
@@ -227,9 +261,11 @@ CARD_FAULTS = [(unscaled, "blk12"), (unscaled, "blk23"), (uniform, "blk0"),
                          ids=lambda v: getattr(v, "__name__", v))
 def test_fault_in_one_block_is_not_correct_on_the_card(card, monkeypatch,
                                                        fault, target):
-    """At the cell's own size: the fault in one block of 24."""
-    break_block(monkeypatch, fault, target)
+    """At the cell's own size: the fault in one block of 24, the attention
+    faults through the kernel route."""
+    seen = break_block(monkeypatch, fault, target)
     r = harness.run_cell(ROOT, CELL, 2**31 + 41, 2.0, False, card,
                          harness.now())
     print(fault.__name__, target, json.dumps(r["checks"]))
+    assert set(seen) == ({"mlp2"} if fault is mlp_dropped else {"kernel"})
     assert not r["correct"], r["checks"]

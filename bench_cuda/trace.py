@@ -9,7 +9,9 @@ computes on another). Each port kernel's launches in the trace are counted
 by the device-kernel names in ``kernels/<kernel>.json`` and held against the
 port's own launch counters (``ops.cuda.launches()``): a trace that holds
 fewer launches than the port counted has dropped kernels, and the run fails
-rather than report a busy time that is too low.
+rather than report a busy time that is too low. The summary also keeps the
+program's spans in the slice, reduced by ``spans.reduce``, for the readers
+of ``spans.kind_share``, ``host_wait_share`` and ``slowdown``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import os
 import re
 import time
 import warnings
+
+from bench_cuda import spans
 
 
 class TraceMismatch(RuntimeError):
@@ -133,7 +137,8 @@ def summarize(sl: Slice, table: dict, counted: dict,
 
     counted: {port kernel: launches the port counted inside the slice}.
     Returns {"busy_s", "window_s", "kernels": {port kernel: {"launches",
-    "seconds"}}, "device_ops", "idle_gaps", "launch_check"}. Raises
+    "seconds"}}, "device_ops", "idle_gaps", "launch_check", "spans":
+    ``spans.reduce`` of the slice's events}. Raises
     TraceMismatch when a port kernel launched more often than the trace
     shows, or launched with no entry in ``table``."""
     from torch.autograd import DeviceType
@@ -221,4 +226,5 @@ def summarize(sl: Slice, table: dict, counted: dict,
                        key=lambda kv: -kv[1])[:10]
     return {"busy_s": busy_ns / 1e9, "window_s": sl.t1 - sl.t0,
             "kernels": kernels, "device_ops": device_ops,
-            "idle_gaps": idle_gaps, "launch_check": check}
+            "idle_gaps": idle_gaps, "launch_check": check,
+            "spans": spans.reduce(sl.events)}
